@@ -1,0 +1,81 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled by nvcc, at first use, into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds), and loaded with ctypes. Libraries go to `build/kernels/` at the
+repository root (git-ignored), named by a hash of the source, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# every kernel source of the port, by name (csrc/<name>.cu)
+KERNELS = ("onehot_bilinear",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every named source that has no current library, all nvcc
+    processes at once. Returns {name: seconds} for the ones it built."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    t0 = time.perf_counter()
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    seconds, errors = {}, []
+    for name, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, library_path(name))
+        seconds[name] = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes handle of kernel library `name`, building it if needed."""
+    build_all([name])
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,0 +1,110 @@
+"""K2: the exact bilinear tex-map lookup of the strict preset.
+
+Replaces the Pallas kernel `keypointnerf_tpu/ops/pallas/onehot_bilinear.py`
+(`onehot_bilinear_sample` / `multiview_onehot_bilinear_sample`), which the
+JAX model calls for the tex map when `tex_onehot_sample` is set. The TPU
+kernel computes the lookup as one-hot MXU contractions; their zero terms
+are exact zeros, so the same values come from the four corners with the
+TPU kernel's rounding order (see csrc/onehot_bilinear.cu):
+
+  yw, xw  rounded to the map dtype
+  t_x  = rnd(yw0 * M[y0, x] + yw1 * M[y0+1, x])     x in {x0, x0+1}
+  g_x  = rnd(xw_x * t_x)
+  out  = rnd(g_x0 + g_x1)
+
+with every product and sum in f32 and rnd() the round to the map dtype.
+
+On a CUDA tensor the wrapper launches the hand-written kernel (one launch
+for all views) or raises; on a CPU tensor it runs `onehot_bilinear_plain`,
+the same five steps as tensor ops.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .feat_sample import bilinear_coords, gather_corners
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def onehot_bilinear_plain(feats, xy):
+    """The plain PyTorch version of the kernel.
+
+    feats: (V, H, W, C) f32 or bf16; xy: (V, N, 2) f32 NDC. Returns
+    (V, N, C) in feats.dtype.
+    """
+    dt = feats.dtype
+    V, H, W, C = feats.shape
+    x0, y0, wx, wy = bilinear_coords(xy, H, W)
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    yw0, yw1 = rnd(1.0 - wy)[..., None], rnd(wy)[..., None]
+    xw0, xw1 = rnd(1.0 - wx)[..., None], rnd(wx)[..., None]
+    m00, m01, m10, m11 = (m.float() for m in gather_corners(feats, x0, y0))
+    t0 = rnd(yw0 * m00 + yw1 * m10)
+    t1 = rnd(yw0 * m01 + yw1 * m11)
+    return (rnd(xw0 * t0) + rnd(xw1 * t1)).to(dt)
+
+
+def _check(feats, xy):
+    if feats.dim() != 4 or xy.dim() != 3 or xy.shape[-1] != 2:
+        raise ValueError(
+            f"expected maps (V, H, W, C) and points (V, N, 2), got "
+            f"{tuple(feats.shape)} and {tuple(xy.shape)}"
+        )
+    if xy.shape[0] != feats.shape[0]:
+        raise ValueError(f"{feats.shape[0]} maps but {xy.shape[0]} point sets")
+    if feats.shape[1] < 2 or feats.shape[2] < 2:
+        raise ValueError(f"maps must be at least 2x2, got {tuple(feats.shape)}")
+    if feats.dtype not in _DTYPE_CODE:
+        raise TypeError(f"map dtype must be float32 or bfloat16, got {feats.dtype}")
+    if xy.dtype != torch.float32:
+        raise TypeError(f"points must be float32, got {xy.dtype}")
+    if feats.device != xy.device:
+        raise ValueError(f"maps on {feats.device} but points on {xy.device}")
+
+
+def _launch(feats, xy):
+    if not (feats.is_contiguous() and xy.is_contiguous()):
+        raise ValueError("the kernel takes contiguous maps and points")
+    from ._build import load
+
+    lib = load("onehot_bilinear")
+    fn = lib.kpn_onehot_bilinear
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes += [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    V, H, W, C = feats.shape
+    N = xy.shape[1]
+    out = torch.empty((V, N, C), dtype=feats.dtype, device=feats.device)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = fn(feats.data_ptr(), xy.data_ptr(), out.data_ptr(),
+                 V, N, H, W, C, _DTYPE_CODE[feats.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"onehot_bilinear kernel launch failed: CUDA error {err}")
+    multiview_onehot_bilinear_sample.launches += 1
+    return out
+
+
+def multiview_onehot_bilinear_sample(feats, xy):
+    """Exact bilinear lookup of V maps at per-view NDC points.
+
+    feats: (V, H, W, C) f32 or bf16; xy: (V, N, 2) f32. Returns (V, N, C)
+    in feats.dtype. CUDA tensors go to the kernel (counted in
+    `multiview_onehot_bilinear_sample.launches`), CPU tensors to the plain
+    version.
+    """
+    _check(feats, xy)
+    if feats.is_cuda:
+        return _launch(feats, xy)
+    if feats.device.type != "cpu":
+        raise ValueError(f"no kernel for device {feats.device}")
+    return onehot_bilinear_plain(feats, xy)
+
+
+multiview_onehot_bilinear_sample.launches = 0

@@ -1,0 +1,3 @@
+from .convert import state_dict_from_jax
+
+__all__ = ["state_dict_from_jax"]
