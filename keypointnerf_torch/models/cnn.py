@@ -46,7 +46,8 @@ def _flax_group_norm(x, groups, weight, bias, eps):
     n, c = x.shape[:2]
     xg = x.float().reshape(n, groups, -1)
     mean = xg.mean(dim=-1, keepdim=True)
-    var = torch.clamp((xg * xg).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    var = (xg * xg).mean(dim=-1, keepdim=True) - mean * mean
+    var = torch.maximum(var, torch.zeros_like(var))      # jnp.maximum's gradient at 0
     mul = torch.rsqrt(var + eps)
     shape = (1, c) + (1,) * (x.dim() - 2)
     y = (xg - mean).reshape(x.shape)

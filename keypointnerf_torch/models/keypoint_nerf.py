@@ -1,16 +1,28 @@
 """KeypointNeRF — the generalizable volumetric-avatar model (PyTorch).
 
-Port of `keypointnerf_tpu/models/keypoint_nerf.py`, inference slice:
+Port of `keypointnerf_tpu/models/keypoint_nerf.py`, inference and
+training:
 
   * `encode()`       — pixel-aligned CNN features of the V source views,
                        per map plus the packed 12-ch "full" map
                        [geo_hd 8 | src RGB 3 | fg mask 1] at input res.
   * `query_points()` — per-point evaluation: projection, validity, bilinear
                        lookups (the tex map through kernel K2 when
-                       `tex_onehot_sample`), relative spatial encoding,
-                       geometry MLP fusion and the IBR color head.
-  * `render_rays()`  — coarse + fine ray march with uniform importance
-                       resampling and the exact coarse-value reuse merge.
+                       `tex_onehot_sample` at eval; the matmul-VJP lookup,
+                       with K1 for the coarse map's gradient, when
+                       `train_matmul_gather_vjp`), view dropout in
+                       training, relative spatial encoding, geometry MLP
+                       fusion and the IBR color head.
+  * `render_rays()`  — coarse + fine ray march: at eval with uniform
+                       importance resampling and the exact coarse-value
+                       reuse merge, in training with stratified jitter,
+                       random importance samples and the sorted union.
+  * `forward()`      — JAX's `__call__`: encode, a training patch (or the
+                       full image at eval), the march and the targets.
+
+The JAX model draws its training randomness from Flax's "render" key
+inside the module; the port takes every draw as a tensor
+(`training.draws.TrainDraws`), so a test can feed both the same numbers.
 
 The modules keep the original KeypointNeRF state_dict layout
 (`geo_encoder.*`, `tex_encoder.*`, `mlp_geo.layers{1,2}.*`, `mlp_tex.*`,
@@ -19,12 +31,14 @@ The modules keep the original KeypointNeRF state_dict layout
 f32; `cfg.compute_dtype` is the dtype the layers compute in. Point layout
 is (V, N, C), N = rays * samples flattened.
 
-Training and the fast-preset flags are later slices: a config or call
-that needs them raises NotImplementedError naming the ROADMAP item.
+The fast-preset flags, the flag-gated kernels and `remat` are later
+slices: a config that needs them raises NotImplementedError naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Tuple
 
@@ -36,9 +50,11 @@ from ..device import DeviceLike, resolve_device
 from ..geometry.aabb import ray_aabb_intersection
 from ..geometry.cameras import (
     camera_center,
+    camera_rays,
     compose_krt,
     ndc_xy,
     ndc_z,
+    pixel_grid,
     project_points,
     world_to_cam,
 )
@@ -49,7 +65,7 @@ from ..geometry.sampling import (
     stratified_z,
     union_sorted_z,
 )
-from ..ops.feat_sample import multiview_bilinear_sample
+from ..ops.feat_sample import multiview_bilinear_sample, multiview_bilinear_sample_mm
 from ..ops.onehot_bilinear import multiview_onehot_bilinear_sample
 from .cnn import ConvTranspose2d, HGFilter, ResBlkEncoder, avg_pool2
 from .ibr_head import IBRRenderingHead, dense
@@ -153,6 +169,8 @@ def check_supported(cfg: KeypointNeRFConfig) -> None:
         (cfg.use_pallas_composite, "use_pallas_composite", "Queue 2 K6"),
         (cfg.separate_cf, "separate_cf", "Queue 1 item 2 (model remainder)"),
         (bool(cfg.pool_mode), f"pool_mode={cfg.pool_mode!r}", "Queue 1 item 2 (AttentionPool)"),
+        (cfg.remat, "remat", "Queue 1 item 1 (remat)"),
+        (cfg.remat_save_gathers, "remat_save_gathers", "Queue 1 item 1 (remat)"),
     ]
     for on, flag, item in unported:
         if on:
@@ -161,12 +179,6 @@ def check_supported(cfg: KeypointNeRFConfig) -> None:
     if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, "
                          f"got {cfg.compute_dtype!r}")
-
-
-def _no_training(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "train=True is not ported yet: ROADMAP Queue 1 item 1 (training)")
 
 
 @dataclasses.dataclass
@@ -257,7 +269,6 @@ class KeypointNeRF(nn.Module):
             p.copy_(torch.as_tensor(vals, dtype=p.dtype))
 
     # ------------------------------------------------------------------ encode
-    @torch.no_grad()
     def encode(self, src_images, src_masks=None, train: bool = False):
         """Run the CNN encoders over the V source views.
 
@@ -265,9 +276,10 @@ class KeypointNeRF(nn.Module):
         (V, H/4, W/4, 64), hires (V, H, W, 8)], "tex": (V, H/2, W/2, 8)}
         in the compute dtype, channels last and contiguous, plus "full"
         (V, H, W, 12) = [hires | src RGB | mask] when `src_masks` is given
-        and the hires map is at input resolution.
+        and the hires map is at input resolution. `train` changes nothing
+        here (the fused map that it would leave unpadded is not ported);
+        gradients flow when autograd is on.
         """
-        _no_training(train)
         x = (2.0 * src_images - 1.0).to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
         x_geo = x
         for _ in range(self.cfg.ds_geo):
@@ -285,16 +297,16 @@ class KeypointNeRF(nn.Module):
         return feats
 
     # ----------------------------------------------------------------- query
-    @torch.no_grad()
     def query_points(self, pts, view_dirs, feats, vb: ViewBatch, n_samples: int,
-                     train: bool = False):
+                     train: bool = False, view_keep=None):
         """Evaluate [sdf, radiance, rgb] at N world points.
 
         pts, view_dirs (N, 3); `n_samples` (samples per ray) is the JAX
-        signature's, read by the fast slice's gather-lerp. Returns f32 sdf
-        (N, 1), rad (N, 1), rgb (N, 3) and valid (N, 1).
+        signature's, read by the fast slice's gather-lerp. `view_keep` (V,)
+        is the training view-dropout draw (0/1 per view, one view forced
+        kept), applied when `train` and V > 1. Returns f32 sdf (N, 1),
+        rad (N, 1), rgb (N, 3) and valid (N, 1).
         """
-        _no_training(train)
         c = self.cfg
         V = vb.src_images.shape[0]
         H, W = vb.src_images.shape[1:3]
@@ -311,14 +323,26 @@ class KeypointNeRF(nn.Module):
         in_xy = ((xy >= -1.0 - eps) & (xy <= 1.0 + eps)).all(dim=-1, keepdim=True)
         mask = (in_xy & (zn >= -1.0)).float()               # (V, N, 1)
 
+        # with the matmul VJP, a map's gradient is the JAX package's exact
+        # one-hot sum, through K1 for maps of >= 32 gradient channels
         hd_ch = c.geo_out_ch_hd
+        if c.train_matmul_gather_vjp:
+            mvbs = functools.partial(multiview_bilinear_sample_mm,
+                                     pallas_dmap=c.train_pallas_dmap)
+        else:
+            mvbs = multiview_bilinear_sample
         if "full" in feats:
-            full_xy = multiview_bilinear_sample(feats["full"], xy)  # (V, N, 12)
+            if c.train_matmul_gather_vjp:
+                # the RGB / mask channels' gradients die at the input
+                # leaves: only the hd prefix gets a map gradient
+                full_xy = mvbs(feats["full"], xy, grad_channels=hd_ch)  # (V, N, 12)
+            else:
+                full_xy = mvbs(feats["full"], xy)
             feat_hd = full_xy[..., :hd_ch]
             img_xy = full_xy[..., hd_ch : hd_ch + 3]
             fg = full_xy[..., hd_ch + 3 : hd_ch + 4]
         else:
-            feat_hd = multiview_bilinear_sample(feats["geo"][1], xy)
+            feat_hd = mvbs(feats["geo"][1], xy)
             img_xy = multiview_bilinear_sample(vb.src_images, xy)
             fg = multiview_bilinear_sample(vb.src_masks, xy)
 
@@ -328,19 +352,23 @@ class KeypointNeRF(nn.Module):
             all_valid = all_valid & (fg > 0.1).all(dim=0)
         mask = mask * all_valid[None].float()
 
+        # view dropout: one random view kept, the others with p = 0.5
+        if train and V > 1:
+            mask = mask * view_keep.to(mask.dtype)[:, None, None]
+
         # smooth border pixel weights
         xyz01 = 0.5 * torch.cat([xy, zn], dim=-1) + 0.5
         dist_b = torch.minimum(xyz01, 1.0 - xyz01)
         pw = torch.sigmoid(5.0 * (dist_b / 0.1 - 1.0))
         pw = pw[..., 0:1] * pw[..., 1:2] * pw[..., 2:3]
         pw = pw * mask
-        pw = pw / (pw.sum(dim=0, keepdim=True) + 1e-6)
+        pw = (pw / (pw.sum(dim=0, keepdim=True) + 1e-6)).detach()
 
-        feat_coarse = multiview_bilinear_sample(feats["geo"][0], xy)
-        if c.tex_onehot_sample:
+        feat_coarse = mvbs(feats["geo"][0], xy)
+        if c.tex_onehot_sample and not train:
             feat_xy = multiview_onehot_bilinear_sample(feats["tex"], xy)  # K2
         else:
-            feat_xy = multiview_bilinear_sample(feats["tex"], xy)
+            feat_xy = mvbs(feats["tex"], xy)
 
         # relative spatial encoding
         pts_cam = world_to_cam(pts[None], vb.src_R, vb.src_t)       # (V, N, 3)
@@ -369,37 +397,52 @@ class KeypointNeRF(nn.Module):
         return (out[..., 0:1].float(), out[..., 1:].float(), rgb.float(),
                 valid.float())
 
-    def _eval_density(self, pts, view_dirs, feats, vb, n_samples):
-        """Background sdf substitution and alpha = valid * relu(rad)."""
-        sdf, rads, rgb, valid = self.query_points(pts, view_dirs, feats, vb, n_samples)
+    def _eval_density(self, pts, view_dirs, feats, vb, n_samples, draws=None):
+        """Background sdf substitution, the training radiance noise (the
+        query's `noise` draw, already scaled by `rand_noise_std`) and
+        alpha = valid * relu(rad). `draws` (a `QueryDraws`) is given in
+        training and None at eval."""
+        train = draws is not None
+        sdf, rads, rgb, valid = self.query_points(
+            pts, view_dirs, feats, vb, n_samples, train=train,
+            view_keep=draws.view_keep if train else None)
         rad = rads[..., 0:1]
         sdf = valid * sdf + (1.0 - valid) * self.cfg.bkg_sdf
+        if train and self.cfg.rand_noise_std > 0.0:
+            rad = rad + draws.noise
         alpha = valid * torch.relu(rad)
         return alpha[..., 0], sdf[..., 0], rgb
 
     # ------------------------------------------------------------ ray march
-    @torch.no_grad()
     def render_rays(self, feats, vb: ViewBatch, origin, dirs, near, far,
-                    train: bool = False, fine: bool = True):
-        """Coarse + fine ray march of R rays in eval mode.
+                    train: bool = False, fine: bool = True, draws=None):
+        """Coarse + fine ray march of R rays.
 
         origin (3,); dirs (R, 3) unit; near, far (R, 1). Rays whose AABB
-        intersection misses keep the full [znear, zfar] slab. Returns
-        rgb/depth/acc for coarse and (when `fine`) rgb/depth/acc/sdf fine.
+        intersection misses keep the full [znear, zfar] slab. In training
+        (`draws`, a `TrainDraws`, required) the depths are jittered, the
+        fine depths drawn from the detached coarse weights and the sorted
+        union of both re-evaluated. Returns rgb/depth/acc for coarse and
+        (when `fine`) rgb/depth/acc/sdf fine.
         """
-        _no_training(train)
         c = self.cfg
+        if train and draws is None:
+            raise ValueError("render_rays(train=True) needs the step's TrainDraws")
+        if not train:
+            draws = None
         Rn = dirs.shape[0]
 
         z1, z2, hit = ray_aabb_intersection(vb.bounds, origin, dirs)
         near = torch.where(hit & (z1 > near), z1, near)
         far = torch.where(hit & (z2 < far), z2, far)
 
-        z = stratified_z(near, far, c.n_coarse)                        # (R, S)
+        z = stratified_z(near, far, c.n_coarse,
+                         u=None if draws is None else draws.strat_u)     # (R, S)
         pts = origin + dirs[:, None, :] * z[..., None]
         view = dirs[:, None, :].expand(pts.shape)
         alpha, sdf, rgb = self._eval_density(
-            pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, c.n_coarse)
+            pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, c.n_coarse,
+            None if draws is None else draws.coarse)
         alpha = alpha.reshape(Rn, c.n_coarse)
         sdf = sdf.reshape(Rn, c.n_coarse)
         rgb = rgb.reshape(Rn, c.n_coarse, 3)
@@ -414,9 +457,11 @@ class KeypointNeRF(nn.Module):
 
         # importance resampling over interior bins, evenly spaced u at eval
         z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
-        z_fine = importance_z(coarse.contrib[..., 1:-1], z_mid, c.n_fine)
+        z_fine = importance_z(coarse.contrib[..., 1:-1].detach(), z_mid, c.n_fine,
+                              u=None if draws is None else draws.importance_u)
 
-        if c.reuse_coarse_eval:
+        # the reuse merge is exact only for a deterministic query (eval)
+        if c.reuse_coarse_eval and not train:
             # the eval query is deterministic: evaluate only the fine depths
             # and merge the cached coarse values (exact)
             pts = origin + dirs[:, None, :] * z_fine[..., None]
@@ -437,7 +482,8 @@ class KeypointNeRF(nn.Module):
             pts = origin + dirs[:, None, :] * z_all[..., None]
             view = dirs[:, None, :].expand(pts.shape)
             alpha_a, sdf_a, rgb_a = self._eval_density(
-                pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, n_all)
+                pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, n_all,
+                None if draws is None else draws.fine)
             fine_out = composite(alpha_a.reshape(Rn, n_all), sdf_a.reshape(Rn, n_all),
                                  rgb_a.reshape(Rn, n_all, 3), z_all)
         out.update({
@@ -447,3 +493,47 @@ class KeypointNeRF(nn.Module):
             "sdf_fine": fine_out.sdf,
         })
         return out
+
+    # ------------------------------------------------------------- training
+    def sample_patch_pixels(self, vb: ViewBatch, patch_index):
+        """The (P*P, 2) int (x, y) pixels of the training patch centered on
+        flat pixel `patch_index` (the `TrainDraws` draw): the window is
+        shifted inside the frame, not clamped pixel by pixel."""
+        c = self.cfg
+        H, W = vb.tar_mask.shape[:2]
+        idx = torch.as_tensor(patch_index, device=vb.tar_mask.device).long()
+        cy, cx = idx // W, idx % W
+        x0 = torch.clamp(cx - c.patch_w // 2, 0, max(W - c.patch_w, 0))
+        y0 = torch.clamp(cy - c.patch_h // 2, 0, max(H - c.patch_h, 0))
+        grid = pixel_grid(c.patch_h, c.patch_w, device=idx.device) + torch.stack([x0, y0])
+        # the degenerate patch > image case: x in [0, W-1], y in [0, H-1]
+        hi = torch.tensor([W - 1, H - 1], device=idx.device)
+        return torch.minimum(torch.clamp(grid, min=0), hi).to(torch.int32)
+
+    def forward(self, vb: ViewBatch, train: bool = True, draws=None):
+        """One full forward (JAX's `__call__`): encode the source views,
+        render the training patch of `draws` (a `TrainDraws`; required in
+        training) or, at eval, the whole target image, and gather the
+        targets. Returns (P, P, ...) images: rgb/depth/acc coarse and fine,
+        sdf_fine, target_rgb and target_alpha.
+        """
+        c = self.cfg
+        H, W = vb.tar_image.shape[:2]
+        if train and draws is None:
+            raise ValueError("forward(train=True) needs the step's TrainDraws")
+        feats = self.encode(vb.src_images, vb.src_masks, train)
+        if train:
+            pix = self.sample_patch_pixels(vb, draws.patch_index)
+            ph, pw = c.patch_h, c.patch_w
+        else:
+            pix = pixel_grid(H, W, device=vb.tar_image.device)
+            ph, pw = H, W
+        origin, dirs, near, far = camera_rays(
+            pix.float(), vb.tar_K, vb.tar_R, vb.tar_t, c.znear, c.zfar)
+        out = self.render_rays(feats, vb, origin, dirs, near, far, train=train,
+                               draws=draws)
+        flat_idx = (pix[:, 1] * W + pix[:, 0]).long()
+        images = {k: v.reshape((ph, pw) + v.shape[1:]) for k, v in out.items()}
+        images["target_rgb"] = vb.tar_image.reshape(-1, 3)[flat_idx].reshape(ph, pw, 3)
+        images["target_alpha"] = vb.tar_mask.reshape(-1, 1)[flat_idx].reshape(ph, pw, 1)
+        return images

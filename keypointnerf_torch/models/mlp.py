@@ -4,13 +4,15 @@ masked cross-view pooling, and the fused geometry head.
 Port of `keypointnerf_tpu/models/mlp.py` with the original KeypointNeRF
 state_dict layout: every layer is a `layers.{i}.linear` holding
 `weight_v`/`weight_g`/`bias` (weight norm, dim 0) or `weight`/`bias`
-(the last layer). `AttentionPool` is not ported yet.
+(the last layer). `AttentionPool` is not ported yet. Everything here is
+differentiable; the training step holds its gradients against `jax.grad`.
 
 Numerics follow the JAX `WNDense`: the weight norm w = v * g / (||v|| +
 1e-12) is computed in f32 from f32 parameters; a skip concat is never
 formed, each input block is contracted with its row block of w and the
 partial products are summed in order; the result is f32 plus an f32 bias.
-With a bf16 compute dtype the inputs and w are cast to bf16 first.
+With a bf16 compute dtype the inputs and w are rounded to bf16 first and
+the sum is kept in f32 (`dot_f32`).
 """
 from __future__ import annotations
 
@@ -21,11 +23,22 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+def abs_sel(x):
+    """|x| with `jnp.abs`'s gradient: +1 at x == 0 (torch's `abs` passes
+    0 there). A loss term |pred - target| meets exact zeros, e.g. an empty
+    ray's black pixel against the black background."""
+    return torch.where(x >= 0, x, -x)
+
+
 def softplus100(x):
     """Softplus with beta=100 in the overflow-safe form
-    max(y, 0) + log1p(exp(-|y|)), y = 100 x, scaled back by 0.01."""
+    max(y, 0) + log1p(exp(-|y|)), y = 100 x, scaled back by 0.01.
+
+    The gradient at y == 0 is JAX's, 0: there `jnp.maximum` passes 0.5 and
+    `jnp.abs` +1, so the two terms' 0.5 and -0.5 cancel; torch's `relu`
+    and `abs` each pass 0. With zero biases at init, y == 0 does occur."""
     y = 100.0 * x
-    return (torch.clamp(y, min=0.0) + torch.log1p(torch.exp(-y.abs()))) * 0.01
+    return (torch.relu(y) + torch.log1p(torch.exp(-y.abs()))) * 0.01
 
 
 _NL = {
@@ -48,16 +61,23 @@ def get_nl(name):
 
 
 def dot_f32(x, w, dtype):
-    """x @ w.T with x and w in `dtype` and an f32 result.
+    """x @ w.T with x and w rounded to `dtype` and the sum kept in f32.
 
-    In bf16 the product is formed by the bf16 matmul, whose f32 sum is
-    rounded to bf16 once before the upcast; the JAX package keeps that sum
-    in f32 (`preferred_element_type`). The deviation is at most one bf16
-    rounding of each partial product (ROADMAP Queue 3).
+    The JAX layer contracts in `dtype` with `preferred_element_type=f32`.
+    The product of two bf16 values is exact in f32, so the f32 product of
+    the bf16-rounded operands is the same sum (to summation order). Its
+    gradients round like JAX's too: each operand's gradient is the f32
+    product rounded once to `dtype` by the cast's backward. Without
+    autograd on a CUDA tensor (inference), the same sum comes from the
+    bf16 matmul with an f32 output (`torch.mm(..., out_dtype=float32)`),
+    ~6x faster on an H100 (PERF.md).
     """
-    if dtype == torch.float32:
-        return F.linear(x.float(), w.float())
-    return F.linear(x.to(dtype), w.to(dtype)).float()
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if dtype == torch.bfloat16 and x.is_cuda and not needs_grad:
+        a = x.to(dtype).reshape(-1, x.shape[-1])
+        out = torch.mm(a, w.to(dtype).T, out_dtype=torch.float32)
+        return out.reshape(x.shape[:-1] + (w.shape[0],))
+    return F.linear(x.to(dtype).float(), w.to(dtype).float())
 
 
 class WNLinear(nn.Module):

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # every kernel source of the port, by name (csrc/<name>.cu)
-KERNELS = ("onehot_bilinear",)
+KERNELS = ("onehot_bilinear", "onehot_dmap")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

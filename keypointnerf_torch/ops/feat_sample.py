@@ -1,8 +1,9 @@
-"""Bilinear feature sampling at continuous image locations (forward only).
+"""Bilinear feature sampling at continuous image locations.
 
-Port of the forward of `keypointnerf_tpu/ops/feat_sample.py`
-(`bilinear_sample` / `multiview_bilinear_sample`): torch `grid_sample`
-semantics with mode='bilinear', padding_mode='border', align_corners=True.
+Port of `keypointnerf_tpu/ops/feat_sample.py` (`bilinear_sample`,
+`multiview_bilinear_sample` and the matmul-VJP `multiview_bilinear_sample_mm`):
+torch `grid_sample` semantics with mode='bilinear', padding_mode='border',
+align_corners=True.
 
   * NDC [-1, 1] maps to pixel centers [0, S-1] (align_corners).
   * Coordinates are clamped to the border before the corner/weight split.
@@ -68,3 +69,68 @@ def multiview_bilinear_sample(feats, xy):
 def bilinear_sample(feat, xy):
     """One (H, W, C) map at (N, 2) NDC points -> (N, C)."""
     return multiview_bilinear_sample(feat[None], xy[None])[0]
+
+
+# maps with at least this many gradient channels take K1 (the JAX
+# package's default KPN_DMAP_MIN_C; the env override is not ported)
+DMAP_KERNEL_MIN_CHANNELS = 32
+
+
+class _BilinearSampleMM(torch.autograd.Function):
+    """`multiview_bilinear_sample` with the JAX package's matmul-VJP
+    backward (`_mm_bwd_impl`): the coordinate gradient from one f32
+    re-gather of the corners, zeroed where the unclamped coordinate lies
+    outside [0, S-1]; the map gradient over the first `grad_channels`
+    channels (zeros after them), per-term rounded to the map dtype and
+    summed in f32, returned in the map dtype."""
+
+    @staticmethod
+    def forward(ctx, feats, xy, grad_channels, pallas_dmap):
+        ctx.save_for_backward(feats, xy)
+        ctx.grad_channels, ctx.pallas_dmap = grad_channels, pallas_dmap
+        return multiview_bilinear_sample(feats, xy)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .onehot_dmap import multiview_dmap_onehot, onehot_dmap_plain
+
+        feats, xy = ctx.saved_tensors
+        V, H, W, C = feats.shape
+        gf = g.float()
+        dmap = dxy = None
+        if ctx.needs_input_grad[1]:
+            xs = (xy[..., 0].float() + 1.0) * 0.5 * (W - 1)
+            ys = (xy[..., 1].float() + 1.0) * 0.5 * (H - 1)
+            in_x = (xs >= 0.0) & (xs <= W - 1.0)
+            in_y = (ys >= 0.0) & (ys <= H - 1.0)
+            x0, y0, wx, wy = bilinear_coords(xy.float(), H, W)
+            m00, m01, m10, m11 = (m.float() for m in gather_corners(feats, x0, y0))
+            wx, wy = wx[..., None], wy[..., None]
+            d_px = (1.0 - wy) * (m01 - m00) + wy * (m11 - m10)
+            d_py = (1.0 - wx) * (m10 - m00) + wx * (m11 - m01)
+            dx = (gf * d_px).sum(-1) * (0.5 * (W - 1)) * in_x
+            dy = (gf * d_py).sum(-1) * (0.5 * (H - 1)) * in_y
+            dxy = torch.stack([dx, dy], dim=-1).to(xy.dtype)
+        if ctx.needs_input_grad[0]:
+            cg = C if ctx.grad_channels is None else min(ctx.grad_channels, C)
+            gc = gf[..., :cg].contiguous()
+            xyf = xy.float().contiguous()
+            if ctx.pallas_dmap and cg >= DMAP_KERNEL_MIN_CHANNELS:
+                dmap = multiview_dmap_onehot(xyf, gc, H, W, feats.dtype)      # K1
+            else:
+                dmap = onehot_dmap_plain(xyf, gc, H, W, feats.dtype)          # the XLA scan's terms
+            if cg < C:
+                dmap = torch.cat([dmap, dmap.new_zeros((V, H, W, C - cg))], dim=-1)
+            dmap = dmap.to(feats.dtype)
+        return dmap, dxy, None, None
+
+
+def multiview_bilinear_sample_mm(feats, xy, grad_channels=None, pallas_dmap=False):
+    """`multiview_bilinear_sample` with the matmul-VJP backward, the
+    training-path lookup when `train_matmul_gather_vjp` is on.
+
+    feats (V, H, W, C); xy (V, N, 2). `grad_channels` restricts the map
+    gradient to a channel prefix; with `pallas_dmap` a prefix of at least
+    DMAP_KERNEL_MIN_CHANNELS channels goes to K1 (ops/onehot_dmap.py).
+    """
+    return _BilinearSampleMM.apply(feats, xy, grad_channels, bool(pallas_dmap))

@@ -1,3 +1,3 @@
-from .convert import state_dict_from_jax
+from .convert import state_dict_from_jax, vgg_params_from_jax
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "vgg_params_from_jax"]

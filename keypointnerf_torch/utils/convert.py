@@ -15,6 +15,11 @@ package's `utils/import_torch.py`:
 Flax names its submodules in call (construction) order; the key
 arithmetic below mirrors the importer's (ResBlk `layers.{idx}` indices,
 the IBR head's interleaved `Dense_i`).
+
+Every step is a rename, a transpose or a reshape of one leaf, so the same
+functions carry a JAX *gradient* tree (same structure as the params) onto
+the port's parameter names. `vgg_params_from_jax` does the same for the
+loss's VGG19 features (`{"params": {"conv_{s}_{i}": {kernel, bias}}}`).
 """
 from __future__ import annotations
 
@@ -158,4 +163,14 @@ def state_dict_from_jax(params: Mapping, cfg) -> StateDict:
     for ref, flax_name in _IBR_DENSE.items():
         _dense(sd, f"mlp_tex.{ref}", head[flax_name])
     _dense(sd, "ibr_compress_gfeat", p["gcompress"])
+    return sd
+
+
+def vgg_params_from_jax(params: Mapping) -> StateDict:
+    """The `models.vgg.VGG19Features` state_dict (convs only) for the JAX
+    package's VGG params: HWIO kernels -> OIHW weights."""
+    p = params.get("params", params)
+    sd: StateDict = {}
+    for name, leaf in p.items():
+        _conv(sd, f"convs.{name}", leaf)
     return sd

@@ -179,10 +179,12 @@ def test_empty_ray_scores_match_jax(world):
 
 
 def test_strict_render_bf16_bound(world):
-    """bf16 strict preset, port against JAX: the bf16 rounding points differ
-    (mlp.dot_f32, the cuDNN/XLA conv accumulations), so hold it at a
-    measured bound: worst 0.48% of an output's scale on this scene
-    (rgb_fine), pinned at 2%; both overflow guards read 0."""
+    """bf16 strict preset, port against JAX: the sums of the bf16 convs
+    and products run in another order, so a bf16 rounding now and then
+    lands on the neighbouring value; hold it at a measured bound: worst
+    0.51% of an output's scale on this scene (rgb_fine; 0.48% before
+    mlp.dot_f32 kept its sums in f32: the convs dominate), pinned at 1%;
+    both overflow guards read 0."""
     jc, tc = _configs("bfloat16")
     jout = jax.tree.map(np.asarray, jax_render(JaxModel(jc), world["params"], world["jvb"],
                                                height=SIZE, width=SIZE, chunk=CHUNK))
@@ -191,7 +193,7 @@ def test_strict_render_bf16_bound(world):
     tout = render_image(model, world["tvb"], height=SIZE, width=SIZE, chunk=CHUNK)
     assert float(jout["cull_overflow"].max()) == float(tout["cull_overflow"].max()) == 0.0
     for k in ("rgb_fine", "depth_fine", "acc_fine", "rgb_coarse", "acc_coarse"):
-        assert _max_rel(jout[k], tout[k].numpy()) <= 0.02, k
+        assert _max_rel(jout[k], tout[k].numpy()) <= 0.01, k
 
 
 def test_render_feats_reuse_and_ragged_chunks(world):
@@ -247,12 +249,15 @@ def test_unported_flags_raise(flag):
 
 
 def test_training_calls_raise(world):
-    model, tvb = world["model"], world["tvb"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        model.encode(tvb.src_images, tvb.src_masks, train=True)
-    pts = torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="train=True"):
-        model.query_points(pts, pts, {}, tvb, 4, train=True)
+    """Training is ported except rematerialization: a config with remat or
+    remat_save_gathers raises, and a training forward without its draws
+    raises rather than drawing on its own."""
+    for flag in ("remat", "remat_save_gathers"):
+        cfg = dataclasses.replace(tm.KeypointNeRFConfig(**TINY), **{flag: True})
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
+            tm.KeypointNeRF(cfg, device="cpu")
+    with pytest.raises(ValueError, match="TrainDraws"):
+        world["model"](world["tvb"], train=True)
 
 
 def test_default_device_is_cuda():
@@ -281,6 +286,7 @@ def test_port_imports_no_jax():
         "import keypointnerf_torch, keypointnerf_torch.data, keypointnerf_torch.geometry\n"
         "import keypointnerf_torch.ops, keypointnerf_torch.models, keypointnerf_torch.render\n"
         "import keypointnerf_torch.utils, keypointnerf_torch.ops._build\n"
+        "import keypointnerf_torch.training, keypointnerf_torch.models.vgg\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'keypointnerf_tpu')]\n"
         "assert not bad, bad\n"
