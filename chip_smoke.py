@@ -9,9 +9,14 @@ Phases (any failure exits nonzero):
   2. build: nvcc compiles every kernel of keypointnerf_torch/csrc/ (one
      process per source, all at once) into build/kernels/;
   3. kernels: each kernel (K2 the tex lookup, K1 the coarse map's
-     gradient) against its plain PyTorch version on the card at the main
-     paths' shapes (and an odd map shape), with its time, the plain
-     version's time, one PyTorch library call's time and the bound; and
+     gradient, K4 / K5 the fused geometry MLP without / with the in-kernel
+     spatial encoding) against its plain PyTorch version on the card at
+     the main paths' shapes (render query and, for K5, the training
+     step's two queries; and an odd or ragged shape), with its time,
+     the plain version's time, one PyTorch library call's time where there
+     is one (for K4 / K5 the module path they replace instead) and the
+     bound; the K4 / K5 autograd.Function's gradients (kernel forward,
+     recompute backward) against autograd through the plain version; and
      both forms of `models/mlp.py:dot_f32` in bf16 (inference: torch.mm
      with out_dtype=float32; autograd: the f32 product of bf16-rounded
      operands) against an f64 product, with their times;
@@ -29,13 +34,21 @@ Phases (any failure exits nonzero):
      random frozen VGG19, Adam 5e-4) on the synthetic 512² scene: 2
      warm-up and 5 timed steps, finite losses, K1 launched twice a step,
      parameters changed and finite; s/step, rays/s, peak memory and one
-     step's top CUDA kernels;
+     step's top CUDA kernels; then the same steps with
+     `use_pallas_geo_mlp` (K5 twice a step, its backward the recompute),
+     the first step's loss terms and gradient norm held against the
+     flag-off run's;
   7. train agreement: one toy f32 step on the card against the same step
-     on the CPU (loss, every gradient, the updated parameters);
+     on the CPU (loss, every gradient, the updated parameters), with
+     `use_pallas_geo_mlp` off and on;
   8. prints the kernels line, the card line and, last, the result line.
+
+`--phases kernels,render,...` runs a subset while developing (the result
+line is printed only by a full run).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -48,9 +61,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# H100 SXM published peaks (dense): HBM rate and f32 non-tensor rate
+# H100 SXM published peaks (dense): HBM rate, f32 non-tensor rate, bf16
+# tensor rate
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 ZJU_CONFIG = Path(__file__).resolve().parent / "configs" / "zju.json"
 
 
@@ -216,6 +231,210 @@ def check_onehot_dmap(dev) -> dict:
     return entry
 
 
+GEO_DIMS1, GEO_DIMS2, GEO_SKIP = (168, 128, 128, 120, 64), (128, 64, 64, 2), (64, 8)
+
+
+def seeded_geo_mlp(dev, seed=3):
+    """A full-width GeoFusionMLP with numpy-seeded weights (He-normal
+    directions, gains around sqrt(2), small biases)."""
+    from keypointnerf_torch.models.mlp import GeoFusionMLP
+
+    rs = np.random.default_rng(seed)
+    mlp = GeoFusionMLP(GEO_DIMS1, GEO_DIMS2, GEO_SKIP, (0, 2), dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, p in mlp.named_parameters():
+            if name.endswith("weight_g"):
+                vals = math.sqrt(2.0) * (1.0 + 0.1 * rs.normal(size=p.shape))
+            elif name.endswith("bias"):
+                vals = 0.05 * rs.normal(size=p.shape)
+            else:
+                vals = rs.normal(0.0, math.sqrt(2.0 / p.shape[1]), p.shape)
+            p.copy_(torch.as_tensor(vals, dtype=p.dtype))
+    return mlp.to(dev)
+
+
+def geo_mlp_inputs(dev, N, seed, V=3, K=24):
+    """Query-shaped inputs: keypoints around z = 3, every point within ~0.3
+    of some keypoint (so the Gaussian decay is not all zeros), random image
+    features, ~30% of the (view, point) pairs masked."""
+    rs = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    kpt = rs.normal(size=(V, K, 3)) * 0.4 + [0.0, 0.0, 3.0]
+    pts = kpt[:, rs.integers(0, K, N)] + rs.normal(size=(V, N, 3)) * 0.15
+    mask = (rs.uniform(size=(V, N, 1)) > 0.3).astype(np.float32)
+    weight = mask / (mask.sum(0, keepdims=True) + 1e-6)
+    return dict(pts_cam=f32(pts), kpt_cam=f32(kpt), f0=f32(rs.normal(size=(V, N, 64))),
+                f1=f32(rs.normal(size=(V, N, 8))), mask=f32(mask), weight=f32(weight))
+
+
+def check_fused_geo_mlp(dev) -> dict:
+    """K4 and K5 against their plain versions; returns their kernels-line
+    entries. Tolerances, as a share of each output's largest entry. With
+    f32 products only the order of the sums and the last bits of sin / cos
+    / exp differ: measured 5.3e-7 worst and 2.9e-8 mean for K5 (K4, whose
+    FMA order is the library product's, is bit-equal), pinned at 5e-6 and
+    2e-7. With bf16 products an f32 activation near a bf16 rounding
+    boundary now and then rounds the other way before the next product and
+    the flip spreads: measured 1.8e-3 worst and 8.5e-8 mean (K5; K4
+    bit-equal), pinned at 5e-3 and 1e-6. K5 in bf16 is held at the zju
+    training step's coarse and fine query sizes too: measured 2.5e-3 and
+    2.4e-3 worst, 6.9e-8 and 5.1e-8 mean, inside the same bounds."""
+    from keypointnerf_torch.models.spatial_encoding import SpatialEncodingConfig, spatial_encode
+    from keypointnerf_torch.ops import fused_geo_mlp as fg
+
+    mlp = seeded_geo_mlp(dev)
+    with torch.no_grad():
+        ws = [w.clone() for w in fg.fold_weight_norm(mlp)]
+    V, K, L = 3, 24, 3
+    names = ("out", "valid", "latent_view", "latent_fused")
+    entries = {}
+    bf16_case, f32_case = (torch.bfloat16, 5e-3, 1e-6), (torch.float32, 5e-6, 2e-7)
+    # the render query's shape (2048 rays x 64 samples) and a ragged N, both
+    # kernels and both product types; then the shapes the zju step gives K5
+    # (4096 rays x 64 coarse and x 128 fine samples, bf16 products)
+    for N, train_shape in ((2048 * 64, False), (100_003, False),
+                           (4096 * 64, True), (4096 * 128, True)):
+        x = geo_mlp_inputs(dev, N, seed=N)
+        rest = (x["f0"], x["f1"], x["mask"], x["weight"])
+        variants = {"sp_fused_geo_mlp": (fg.sp_geo_mlp_apply, fg.sp_mlp_stack_plain,
+                                         (x["pts_cam"], x["kpt_cam"]))}
+        if not train_shape:
+            sp = fg.rel_z_decay_encoding(x["pts_cam"], x["kpt_cam"], L, 0.1, 1.0)
+            variants["fused_geo_mlp"] = (fg.geo_mlp_apply, fg.mlp_stack_plain, (sp,))
+        for kname, (apply, plain, lead) in sorted(variants.items()):
+            for dt, worst_tol, mean_tol in ((bf16_case,) if train_shape
+                                            else (bf16_case, f32_case)):
+                with torch.no_grad():
+                    got = apply(ws, *lead, *rest, compute_dtype=dt)
+                    ref = plain(*lead, *rest, ws, compute_dtype=dt)
+                torch.cuda.synchronize()
+                worst = mean = abs_err = 0.0
+                for name, a, b in zip(names, ref, got):
+                    if a.shape != b.shape or b.dtype != torch.float32:
+                        raise SystemExit(f"{kname} {name}: shape or dtype differs")
+                    if name == "valid":
+                        if not torch.equal(a, b):
+                            raise SystemExit(f"{kname}: valid differs from the plain version")
+                        continue
+                    if not bool((torch.isfinite(a) & torch.isfinite(b)).all()):
+                        raise SystemExit(f"{kname} {name}: not finite")
+                    scale = a.abs().max().item()
+                    worst = max(worst, (a - b).abs().max().item() / scale)
+                    mean = max(mean, (a - b).abs().mean().item() / scale)
+                    abs_err = max(abs_err, (a - b).abs().max().item())
+                ok = worst <= worst_tol and mean <= mean_tol
+                print(f"{kname} V={V} N={N} {str(dt)[6:]}: worst error {worst:.3e} of an "
+                      f"output's max (bound {worst_tol}), mean {mean:.3e} (bound {mean_tol}), "
+                      f"valid exact {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise SystemExit(f"{kname} disagrees with its plain version")
+                if N == 2048 * 64 and dt == torch.bfloat16:
+                    entries[kname] = dict(lead=lead, rest=rest, max_abs_err=abs_err,
+                                          apply=apply, plain=plain)
+
+    # gradients: kernel forward and recompute backward against autograd
+    # straight through the plain version, f32, a loss that is not linear
+    # in the outputs (so the cotangents carry the kernel's forward values)
+    x = geo_mlp_inputs(dev, 5000, seed=11)
+    sp = fg.rel_z_decay_encoding(x["pts_cam"], x["kpt_cam"], L, 0.1, 1.0)
+    for kname, keys in (("fused_geo_mlp", ("sp", "f0", "f1")),
+                        ("sp_fused_geo_mlp", ("pts_cam", "kpt_cam", "f0", "f1"))):
+        res = []
+        for through_kernel in (True, False):
+            ins = dict(x, sp=sp)
+            ins.update({k: ins[k].clone().requires_grad_(True) for k in keys})
+            wl = [w.clone().requires_grad_(True) for w in ws]
+            lead = (ins["sp"],) if kname == "fused_geo_mlp" else (ins["pts_cam"], ins["kpt_cam"])
+            rest = (ins["f0"], ins["f1"], ins["mask"], ins["weight"])
+            if through_kernel:
+                apply = fg.geo_mlp_apply if kname == "fused_geo_mlp" else fg.sp_geo_mlp_apply
+                out, _, lv, lf = apply(wl, *lead, *rest)
+            else:
+                plain = fg.mlp_stack_plain if kname == "fused_geo_mlp" else fg.sp_mlp_stack_plain
+                out, _, lv, lf = plain(*lead, *rest, wl)
+            loss = (out ** 2).mean() + (lv ** 2).mean() + (lf ** 2).mean()
+            res.append(torch.autograd.grad(loss, [ins[k] for k in keys] + wl))
+        if not all(bool(torch.isfinite(a).all()) for a in res[0]):
+            raise SystemExit(f"{kname}: a gradient is not finite")
+        worst = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*res))
+        print(f"{kname} gradients (kernel forward + recompute backward vs autograd through "
+              f"the plain version, f32, N=5000): worst {worst:.3e} of a leaf's max "
+              f"(bound 1e-4)", flush=True)
+        if not worst <= 1e-4:
+            raise SystemExit(f"{kname}: gradients disagree with the plain version's")
+
+    # times at the render query's shape, bf16; the module path is what the
+    # kernels replace in query_points: spatial_encode + GeoFusionMLP.forward
+    N = 2048 * 64
+    x = geo_mlp_inputs(dev, N, seed=N)
+    enc = SpatialEncodingConfig()
+    bf = torch.bfloat16
+
+    def module_path(with_encoding):
+        with torch.no_grad():
+            s = (spatial_encode(enc, None, x["pts_cam"], None, x["kpt_cam"])
+                 if with_encoding else sp_big)
+            return mlp(s.to(bf), [x["f0"].to(bf), x["f1"].to(bf)], x["mask"].to(bf),
+                       x["weight"].to(bf))
+
+    sp_big = entries["fused_geo_mlp"]["lead"][0]
+    d = dict(zip(("dsp", "h1", "h2", "h3", "dl"), GEO_DIMS1))
+    g0, g1, g2, do = GEO_DIMS2
+    c0, c1 = GEO_SKIP
+    per_vp = (d["dsp"] + c0) * d["h1"] + d["h1"] * d["h2"] + (d["h2"] + c1) * d["h3"] \
+        + d["h3"] * d["dl"]
+    per_p = g0 * g1 + g1 * g2 + g2 * do
+    mm_flops = 2 * N * (V * per_vp + per_p)
+    n_soft = N * (V * (d["h1"] + d["h2"] + d["h3"]) + g1 + g2)
+    weight_bytes = 4 * sum(w.numel() for w in ws)
+    out_bytes = 4 * N * (V * d["dl"] + g0 + do + 1)
+    result = {}
+    for kname, with_enc in (("fused_geo_mlp", False), ("sp_fused_geo_mlp", True)):
+        e = entries[kname]
+        lead, rest, apply, plain = e["lead"], e["rest"], e["apply"], e["plain"]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: apply(ws, *lead, *rest, compute_dtype=bf), iters=20)
+            plain_ms = cuda_ms(lambda: plain(*lead, *rest, ws, compute_dtype=bf), iters=5,
+                               warmup=2)
+            module_ms = cuda_ms(lambda: module_path(with_enc), iters=5, warmup=2)
+            f32_ms = cuda_ms(lambda: apply(ws, *lead, *rest, compute_dtype=torch.float32),
+                             iters=5, warmup=2)
+            if with_enc:
+                # a bf16 call is two launches: the weights' repack to padded
+                # bf16 (every call: they change each training step) and the
+                # kernel; the profile shows each one's device time
+                print("one sp_fused_geo_mlp call, bf16 products:", flush=True)
+                profile_kernels(lambda: apply(ws, *lead, *rest, compute_dtype=bf), 4)
+        in_bytes = 4 * (sum(t.numel() for t in lead) + sum(t.numel() for t in rest))
+        n_bytes = in_bytes + weight_bytes + out_bytes
+        # f32 work outside the products: per softplus100 ~7 (two of them
+        # transcendental); per (view, point, keypoint) of the encoding ~26
+        # (1 exp, 3 sin, 3 cos); the pool ~8 per (view, point, channel)
+        n_trans = 2 * n_soft + (7 * V * N * K if with_enc else 0)
+        f32_ops = 7 * n_soft + (26 * V * N * K if with_enc else 0) + 8 * V * N * d["dl"]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (mm_flops / BF16_FLOPS_PER_S + f32_ops / F32_FLOPS_PER_S) * 1e3
+        line = 164 if kname == "fused_geo_mlp" else 374
+        result[kname] = {
+            "name": kname, "route": "cuda",
+            "source": "keypointnerf_torch/csrc/fused_geo_mlp.cu",
+            "replaces": f"keypointnerf_tpu/ops/pallas/fused_geo_mlp.py:{line}",
+            "max_abs_err": e["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "module_path_ms": module_ms, "f32_ms": f32_ms,
+        }
+        print(f"{kname} timing (bf16 products, V={V}, N={N}, K={K}): kernel {ms:.4f} ms "
+              f"(f32 products {f32_ms:.4f} ms), plain {plain_ms:.4f} ms, module path "
+              f"({'spatial_encode + ' if with_enc else ''}GeoFusionMLP.forward, bf16, no_grad) "
+              f"{module_ms:.4f} ms, bound {result[kname]['bound_ms']:.4f} ms "
+              f"({result[kname]['bound_by']}: {n_bytes} bytes = {t_bytes:.4f} ms; "
+              f"{mm_flops} product flops at the bf16 tensor rate + {f32_ops} f32 operations "
+              f"= {t_ops:.4f} ms; {n_trans} transcendentals); no single PyTorch call "
+              f"computes this function (library_ms null)", flush=True)
+    return result
+
+
 def earlier_dot_f32(x, w, dtype):
     """dot_f32 before the f32 sum was kept: the bf16 product's f32 sum
     rounded to bf16, then upcast (timed for comparison only)."""
@@ -258,7 +477,26 @@ def orbit_camera(ang):
     return look_at(eye, np.zeros(3))
 
 
-def render_full_width(dev) -> dict:
+def profile_kernels(fn, top):
+    """Run fn() under the profiler; print and return the device time (ms)
+    of its CUDA kernels (an aten op's device time is its kernels' again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
+    total = sum(device_us(e) for e in events) / 1e3
+    print(f"profile: device time {total:.3f} ms", flush=True)
+    for e in sorted(events, key=lambda e: -device_us(e))[:top]:
+        print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}", flush=True)
+    return total
+
+
+def render_full_width(dev):
+    """The strict 512² camera with the flag off; returns K2's launch count
+    and what the flag-on render reuses (model, batch, image)."""
     from keypointnerf_torch.data import SyntheticConfig, make_sample
     from keypointnerf_torch.models import KeypointNeRF, KeypointNeRFConfig, ViewBatch, strict_preset
     from keypointnerf_torch.ops import multiview_onehot_bilinear_sample as k2
@@ -347,30 +585,156 @@ def render_full_width(dev) -> dict:
         raise SystemExit("the culled render differs from the unculled render")
 
     # where the render's device time goes
-    from torch.profiler import ProfilerActivity, profile
+    print(f"one render, flag off (wall {seconds * 1e3:.3f} ms):", flush=True)
+    profile_kernels(render, 12)
+    return launches, dict(cfg=cfg, model=model, vb=vb, out=out, seconds=seconds,
+                          size=size, chunk=chunk, expected=expected)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render()
+
+# The flag-on render against the flag-off one. The two bf16 programs round
+# `pw` and the encoding at other places (the module casts them to bf16, the
+# kernel builds them in f32 and rounds at the dot) and take sin / cos of each
+# level directly rather than by the double-angle recursion. A ray's opacity
+# is a step function of its last sample's radiance (the compositing's 1e10
+# tail interval turns any positive radiance there into alpha 1), so with
+# random weights a few rays flip whole between the two programs: the bound
+# is on each output's mean deviation and on the share of its entries that
+# deviate by more than 1%, both as shares of the output's largest entry.
+# The bounds are each render's own: (mean, share), measured and doubled.
+K5_RENDER_BOUNDS = (3e-4, 4e-4)      # 512² K5: measured 1.15e-4, 1.64e-4 (acc_fine)
+K4_RENDER_BOUNDS = (1.5e-4, 6e-5)    # 256² rel_z K4: 6.89e-5 (acc_fine), 2.54e-5 (rgb_fine)
+
+
+def compare_renders(ref, got, what, bounds):
+    """Every output of `got` finite and within `bounds` (mean, share) of `ref`.
+    depth and sdf are ratios of two near-zero sums on rays that hit almost
+    nothing, where rounding alone moves them by their whole range: their
+    numerators x (acc + 1e-8) are held instead."""
+    worst_mean = worst_share = 0.0
+    rows = []
+    for k, a in ref.items():
+        b = got[k]
+        if not bool(torch.isfinite(b).all()):
+            raise SystemExit(f"{what}: output {k} is not finite")
+        if k == "cull_overflow":
+            continue
+        a, b = a.float(), b.float()
+        if k.startswith(("sdf_", "depth_")):
+            acc = "acc_" + k.split("_")[1]
+            a = a * (ref[acc].float().reshape(a.shape) + 1e-8)
+            b = b * (got[acc].float().reshape(b.shape) + 1e-8)
+        scale = a.abs().max().clamp(min=1e-12)
+        dev = (a - b).abs() / scale
+        mean, share = dev.mean().item(), (dev > 0.01).float().mean().item()
+        rows.append(f"{k} mean {mean:.3e}, {share:.3e} of entries off by > 1%, worst "
+                    f"{dev.max().item():.3e}")
+        worst_mean, worst_share = max(worst_mean, mean), max(worst_share, share)
+    print(f"{what}, deviation as a share of each output's max: {'; '.join(rows)}; worst mean "
+          f"{worst_mean:.3e} (bound {bounds[0]}), worst share {worst_share:.3e} (bound "
+          f"{bounds[1]}); depth and sdf as their numerators", flush=True)
+    if not (worst_mean <= bounds[0] and worst_share <= bounds[1]):
+        raise SystemExit(f"{what}: the flag-on render deviates from the flag-off render")
+
+
+def render_fused(dev, ctx) -> dict:
+    """The same 512² strict camera with use_pallas_geo_mlp (K5 + K2 + the
+    cull); returns the launch counts of the timed render."""
+    from keypointnerf_torch.models import KeypointNeRF
+    from keypointnerf_torch.ops import multiview_onehot_bilinear_sample as k2
+    from keypointnerf_torch.ops import geo_mlp_apply as k4
+    from keypointnerf_torch.ops import sp_geo_mlp_apply as k5
+    from keypointnerf_torch.render import render_image
+
+    size, chunk, vb = ctx["size"], ctx["chunk"], ctx["vb"]
+    model = KeypointNeRF(dataclasses.replace(ctx["cfg"], use_pallas_geo_mlp=True),
+                         device=dev, seed=0)
+    model.load_state_dict(ctx["model"].state_dict())
+    render = lambda: render_image(model, vb, height=size, width=size, chunk=chunk)  # noqa: E731
+    render()                                              # warm-up
+    torch.cuda.synchronize()
+    k2.launches = k4.launches = k5.launches = 0           # counts of this render only
+    t0 = time.perf_counter()
+    out = render()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"sp_fused_geo_mlp": k5.launches, "onehot_bilinear": k2.launches,
+                "fused_geo_mlp": k4.launches}
+    # flag off, on, on, off within this call
+    times = {"off": [ctx["seconds"]], "on": [seconds]}
+    off_render = lambda: render_image(ctx["model"], vb, height=size, width=size,  # noqa: E731
+                                      chunk=chunk)
+    for name, fn in (("on", render), ("off", off_render)):
         torch.cuda.synchronize()
-    # kernels only: an aten op's device time is its kernels' time again
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
-    total = sum(device_us(e) for e in events)
-    print(f"profile: device time {total / 1e3:.3f} ms in one render "
-          f"(wall {seconds * 1e3:.3f} ms)", flush=True)
-    for e in sorted(events, key=lambda e: -device_us(e))[:12]:
-        print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}", flush=True)
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t1)
+    n_rays = size * size
+    overflow = float(out["cull_overflow"].max())
+    print(f"render 512² strict bf16, use_pallas_geo_mlp: {seconds:.4f} s, "
+          f"{n_rays / seconds:.1f} rays/s; cull_overflow={overflow}; K5 launches "
+          f"{launches['sp_fused_geo_mlp']} (expected {ctx['expected']}), K2 "
+          f"{launches['onehot_bilinear']}, K4 {launches['fused_geo_mlp']}; wall clock "
+          f"flag off {[round(t, 4) for t in times['off']]} s, flag on "
+          f"{[round(t, 4) for t in times['on']]} s", flush=True)
+    if overflow != 0.0:
+        raise SystemExit("empty-ray cull budget exceeded with the flag on")
+    if launches["sp_fused_geo_mlp"] != ctx["expected"] or launches["fused_geo_mlp"] != 0 \
+            or launches["onehot_bilinear"] != ctx["expected"]:
+        raise SystemExit("K5 / K2 must each run once per query of the flag-on render")
+    compare_renders(ctx["out"], out, "512² render, K5 on vs off", K5_RENDER_BOUNDS)
+    print("one render, flag on:", flush=True)
+    profile_kernels(render, 8)
     return launches
 
 
-def agreement_small(dev) -> None:
-    """Toy f32 strict render on the card vs the same render on the CPU."""
+def render_rel_z(dev) -> int:
+    """K4 on a path: a 256² strict camera with sp_type rel_z, flag on, held
+    against the same camera with the flag off; returns K4's launches."""
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.models import KeypointNeRF, KeypointNeRFConfig, ViewBatch, strict_preset
+    from keypointnerf_torch.ops import geo_mlp_apply as k4
+    from keypointnerf_torch.ops import sp_geo_mlp_apply as k5
+    from keypointnerf_torch.render import render_image
+
+    size, chunk = 256, 2048
+    cfg = strict_preset(KeypointNeRFConfig(sp_type="rel_z"))
+    sample = make_sample(SyntheticConfig(image_size=size, n_views=4), seed=0)
+    R, t = orbit_camera(0.0)
+    vb = ViewBatch.from_numpy(dict(sample, tar_R=R, tar_t=t), device=dev)
+    outs = {}
+    for flag in (False, True):
+        model = KeypointNeRF(dataclasses.replace(cfg, use_pallas_geo_mlp=flag),
+                             device=dev, seed=0)
+        model.mlp_geo.layers2.layers[-1].linear.bias.data[1] += 2.0
+        k4.launches = k5.launches = 0
+        outs[flag] = render_image(model, vb, height=size, width=size, chunk=chunk)
+        torch.cuda.synchronize()
+    launches = k4.launches
+    n_rays = size * size
+    marched = max(1, min(n_rays, -int(-n_rays * cfg.cull_empty_rays_ratio // 1)))
+    expected = 2 * math.ceil(marched / chunk)
+    overflow = float(outs[True]["cull_overflow"].max())
+    print(f"render 256² strict bf16, sp_type rel_z, use_pallas_geo_mlp: K4 launches "
+          f"{launches} (expected {expected}), K5 {k5.launches}; cull_overflow={overflow}; "
+          f"acc_fine>0 rays {int((outs[True]['acc_fine'] > 0).sum())}", flush=True)
+    if launches != expected or expected == 0 or k5.launches != 0 or overflow != 0.0:
+        raise SystemExit("K4 must run once per query of the rel_z render")
+    compare_renders(outs[False], outs[True], "256² rel_z render, K4 on vs off",
+                    K4_RENDER_BOUNDS)
+    return launches
+
+
+def agreement_small(dev, **overrides) -> None:
+    """Toy f32 strict render on the card vs the same render on the CPU
+    (`overrides` are config fields, e.g. use_pallas_geo_mlp=True)."""
     from keypointnerf_torch.data import SyntheticConfig, make_sample
     from keypointnerf_torch.models import KeypointNeRF, KeypointNeRFConfig, ViewBatch, strict_preset
     from keypointnerf_torch.render import render_image
 
     base = KeypointNeRFConfig(n_coarse=4, n_fine=4, geo_n_downsample=2)
-    cfg = dataclasses.replace(strict_preset(base, cull_budget=0.6), compute_dtype=torch.float32)
+    cfg = dataclasses.replace(strict_preset(base, cull_budget=0.6), compute_dtype=torch.float32,
+                              **overrides)
     sample = make_sample(SyntheticConfig(image_size=32), seed=3)
     sample["src_images"] = np.random.default_rng(7).uniform(
         0, 1, sample["src_images"].shape).astype(np.float32)
@@ -383,8 +747,8 @@ def agreement_small(dev) -> None:
     for k, ref in outs["cpu"].items():
         got = outs["cuda"][k].cpu()
         worst = max(worst, ((got - ref).abs().max() / ref.abs().max().clamp(min=1e-12)).item())
-    print(f"toy f32 render, card vs CPU: max relative error {worst:.3e} (bound 1e-4)",
-          flush=True)
+    print(f"toy f32 render {overrides or ''}, card vs CPU: max relative error {worst:.3e} "
+          f"(bound 1e-4)", flush=True)
     if not worst <= 1e-4:
         raise SystemExit("card render disagrees with the CPU render")
 
@@ -401,21 +765,24 @@ def zju_config(**overrides):
     return dataclasses.replace(KeypointNeRFConfig(**model), **overrides)
 
 
-def train_full_width(dev, warmup=2, steps=5) -> dict:
-    """Optimizer steps of the zju recipe at full width; returns the K1
-    launch count of one step."""
+def train_full_width(dev, fused=False, warmup=2, steps=5) -> dict:
+    """Optimizer steps of the zju recipe at full width, with
+    use_pallas_geo_mlp when `fused`; returns the kernels' launch counts of
+    one step and the step's numbers."""
     from keypointnerf_torch.data import SyntheticConfig, make_sample
     from keypointnerf_torch.models import KeypointNeRF, VGG19Features, ViewBatch
     from keypointnerf_torch.ops import multiview_dmap_onehot as k1
     from keypointnerf_torch.ops import multiview_onehot_bilinear_sample as k2
+    from keypointnerf_torch.ops import geo_mlp_apply as k4
+    from keypointnerf_torch.ops import sp_geo_mlp_apply as k5
     from keypointnerf_torch.training import (
         LossConfig, OptimConfig, TrainDraws, create_train_state, train_step_fn)
 
-    cfg = zju_config()
+    cfg = zju_config(use_pallas_geo_mlp=fused)
     print(f"train config (configs/zju.json model section): n_coarse={cfg.n_coarse} "
           f"n_fine={cfg.n_fine} patch={cfg.patch_h}x{cfg.patch_w} dtype={cfg.compute_dtype} "
           f"matmul_vjp={cfg.train_matmul_gather_vjp} pallas_dmap={cfg.train_pallas_dmap} "
-          f"remat={cfg.remat}", flush=True)
+          f"remat={cfg.remat} use_pallas_geo_mlp={cfg.use_pallas_geo_mlp}", flush=True)
     vb = ViewBatch.from_numpy(make_sample(SyntheticConfig(image_size=512, n_views=4), seed=0),
                               device=dev)
     model = KeypointNeRF(cfg, device=dev, seed=0)
@@ -432,7 +799,10 @@ def train_full_width(dev, warmup=2, steps=5) -> dict:
         return train_step_fn(model, loss_cfg, state, vb, TrainDraws.sample(cfg, vb, gen))
 
     t0 = time.perf_counter()
-    for _ in range(warmup):
+    # the first step starts from the seeded weights and draws: its numbers
+    # are comparable between the flag-off and the flag-on run
+    first = {k: v.item() for k, v in step().items()}
+    for _ in range(warmup - 1):
         step()
     torch.cuda.synchronize()
     print(f"{warmup} warm-up steps {time.perf_counter() - t0:.3f} s", flush=True)
@@ -440,57 +810,79 @@ def train_full_width(dev, warmup=2, steps=5) -> dict:
     torch.cuda.reset_peak_memory_stats()
     per_step, errs = [], []
     for i in range(steps):
-        k1.launches = k2.launches = 0                    # counts of this step only
+        k1.launches = k2.launches = k4.launches = k5.launches = 0   # this step only
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         err = step()
         torch.cuda.synchronize()
         per_step.append(time.perf_counter() - t1)
-        launches = {"onehot_dmap": k1.launches, "onehot_bilinear": k2.launches}
+        launches = {"onehot_dmap": k1.launches, "onehot_bilinear": k2.launches,
+                    "fused_geo_mlp": k4.launches, "sp_fused_geo_mlp": k5.launches}
         errs.append({k: v.item() for k, v in err.items()})
         print(f"step {i}: {per_step[-1]:.4f} s; e_all={errs[-1]['e_all']:.6f} "
               f"grad_norm={errs[-1]['grad_norm']:.6f} "
               f"terms={ {k: round(v, 6) for k, v in errs[-1].items()} }; "
-              f"K1 launches {launches['onehot_dmap']}, K2 {launches['onehot_bilinear']}",
-              flush=True)
+              f"K1 launches {launches['onehot_dmap']}, K2 {launches['onehot_bilinear']}, "
+              f"K4 {launches['fused_geo_mlp']}, K5 {launches['sp_fused_geo_mlp']}", flush=True)
         if launches["onehot_dmap"] != 2:
             raise SystemExit("K1 must run twice a step (coarse and fine query)")
+        if launches["sp_fused_geo_mlp"] != (2 if fused else 0) or launches["fused_geo_mlp"]:
+            raise SystemExit("K5 must run twice a step with the flag on, never with it off")
         if not all(math.isfinite(v) for v in errs[-1].values()):
             raise SystemExit("a loss or the gradient norm is not finite")
     seconds = sum(per_step) / steps
     peak = torch.cuda.max_memory_allocated()
     changed = sum(int(not torch.equal(b, p)) for b, p in zip(before, model.parameters()))
     finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
-    print(f"train zju full width: {seconds:.4f} s/step (mean of {steps}), {rays / seconds:.1f} "
+    print(f"train zju full width{', use_pallas_geo_mlp' if fused else ''}: "
+          f"{seconds:.4f} s/step (mean of {steps}), {rays / seconds:.1f} "
           f"rays/s; peak memory {peak} bytes ({peak / 2**30:.2f} GiB); {changed} of "
           f"{len(before)} parameter tensors changed, all finite: {finite}", flush=True)
     if changed == 0 or not finite:
         raise SystemExit("the parameters did not change or are not finite")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
-    total = sum(device_us(e) for e in events)
-    print(f"profile: device time {total / 1e3:.3f} ms in one step", flush=True)
-    for e in sorted(events, key=lambda e: -device_us(e))[:15]:
-        print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}", flush=True)
-    return launches
+    # the geometry MLP's parameters get their gradients through the fused
+    # call's recompute backward when the flag is on
+    stuck = [n for (n, p), b in zip(model.named_parameters(), before)
+             if n.startswith("mlp_geo.") and torch.equal(b, p)]
+    if stuck:
+        raise SystemExit(f"geometry MLP parameters did not change: {stuck}")
+    print("one step:", flush=True)
+    device_ms = profile_kernels(step, 8 if fused else 15)
+    return dict(launches, s_per_step=seconds, peak_bytes=peak, device_ms=device_ms, first=first)
 
 
-def train_agreement_small(dev) -> None:
+# The first full-width step with the flag on against the one with it off:
+# the same weights, draws and batch. The two bf16 programs round `pw` and the
+# encoding at other places and take sin / cos another way (see the render
+# bounds above). With seeded random weights the rendered patch is almost
+# black, so the loss terms hardly feel it (a few f32 ulps); the gradient
+# norm does. The bounds are relative, measured and about doubled.
+FUSED_STEP_LOSS_BOUND = 2e-6         # measured 6.24e-7 (e_pix_l1)
+FUSED_STEP_GRAD_NORM_BOUND = 1.5e-3  # measured 5.79e-4
+
+
+def compare_first_steps(off, on) -> None:
+    rel = {k: abs(on[k] - v) / max(abs(v), 1e-12) for k, v in off.items()}
+    loss = max(v for k, v in rel.items() if k != "grad_norm")
+    print(f"first training step, flag on vs off, relative: "
+          f"{ {k: float(f'{v:.3e}') for k, v in rel.items()} }; off {off}; on {on} "
+          f"(bounds: loss terms {FUSED_STEP_LOSS_BOUND}, grad_norm "
+          f"{FUSED_STEP_GRAD_NORM_BOUND})", flush=True)
+    if not (loss <= FUSED_STEP_LOSS_BOUND and rel["grad_norm"] <= FUSED_STEP_GRAD_NORM_BOUND):
+        raise SystemExit("the flag-on training step deviates from the flag-off step")
+
+
+def train_agreement_small(dev, **overrides) -> None:
     """One toy f32 zju-recipe step on the card against the same step on the
-    CPU (the path the CPU tests hold against the JAX package)."""
+    CPU (the path the CPU tests hold against the JAX package); `overrides`
+    are config fields, e.g. use_pallas_geo_mlp=True."""
     from keypointnerf_torch.data import SyntheticConfig, make_sample
     from keypointnerf_torch.models import KeypointNeRF, VGG19Features, ViewBatch
     from keypointnerf_torch.training import (
         LossConfig, OptimConfig, TrainDraws, compute_losses, create_train_state, train_step_fn)
 
     cfg = zju_config(n_coarse=4, n_fine=4, patch_h=4, patch_w=4, geo_n_downsample=2,
-                     compute_dtype=torch.float32)
+                     compute_dtype=torch.float32, **overrides)
     sample = make_sample(SyntheticConfig(image_size=32), seed=3)
     sample["src_images"] = np.random.default_rng(7).uniform(
         0, 1, sample["src_images"].shape).astype(np.float32)
@@ -544,7 +936,7 @@ def train_agreement_small(dev) -> None:
         diff = (a - b).abs()
         param_err = max(param_err, diff[big].max().item() if big.any() else 0.0)
         small = max(small, diff[~big].max().item() if (~big).any() else 0.0)
-    print(f"toy f32 train step, card vs CPU: loss terms {loss_err:.3e} relative (bound 1e-4); "
+    print(f"toy f32 train step {overrides or ''}, card vs CPU: loss terms {loss_err:.3e} relative (bound 1e-4); "
           f"gradients {grad_err:.3e} of each leaf's max (bound 1e-4), ani_al {ani_al:.3e} "
           f"(bound 5e-3), noise leaves {noise:.3e} of the top entry (bound 1e-6); updated "
           f"params {param_err:.3e} absolute where |g| >= 1e-6 (bound 2e-6), {small:.3e} "
@@ -554,7 +946,16 @@ def train_agreement_small(dev) -> None:
         raise SystemExit("the card's training step disagrees with the CPU's")
 
 
+PHASES = ("kernels", "render", "agreement", "train", "train_agreement")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ",".join(PHASES))
+    todo = parser.parse_args().phases.split(",")
+    if not set(todo) <= set(PHASES):
+        parser.error(f"unknown phase in {todo}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -573,25 +974,54 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = build_all(KERNELS)
-    print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
+          f"({ {k: round(v, 2) for k, v in built.items()} })", flush=True)
 
-    phase("kernels against their plain versions")
-    entries = {"onehot_bilinear": check_onehot_bilinear(dev),
-               "onehot_dmap": check_onehot_dmap(dev)}
-    check_dot_f32(dev)
+    entries, launches = {}, {}
+    if "kernels" in todo:
+        phase("kernels against their plain versions")
+        entries = {"onehot_bilinear": check_onehot_bilinear(dev),
+                   "onehot_dmap": check_onehot_dmap(dev),
+                   **check_fused_geo_mlp(dev)}
+        check_dot_f32(dev)
 
-    phase("full-width strict render")
-    launches = render_full_width(dev)
+    if "render" in todo:
+        phase("full-width strict render")
+        k2_launches, ctx = render_full_width(dev)
+        launches.update(k2_launches)
+        phase("full-width strict render with use_pallas_geo_mlp (K5)")
+        launches["sp_fused_geo_mlp"] = render_fused(dev, ctx)["sp_fused_geo_mlp"]
+        del ctx
+        phase("strict render with sp_type rel_z and use_pallas_geo_mlp (K4)")
+        launches["fused_geo_mlp"] = render_rel_z(dev)
 
-    phase("small-input agreement")
-    agreement_small(dev)
+    if "agreement" in todo:
+        phase("small-input agreement")
+        agreement_small(dev)
+        agreement_small(dev, use_pallas_geo_mlp=True)
+        agreement_small(dev, use_pallas_geo_mlp=True, sp_type="rel_z")
 
-    phase("full-width zju training steps")
-    launches["onehot_dmap"] = train_full_width(dev)["onehot_dmap"]
+    if "train" in todo:
+        phase("full-width zju training steps")
+        off = train_full_width(dev)
+        launches["onehot_dmap"] = off["onehot_dmap"]
+        phase("full-width zju training steps with use_pallas_geo_mlp (K5)")
+        on = train_full_width(dev, fused=True)
+        compare_first_steps(off["first"], on["first"])
+        print(f"training step, flag off vs on: {off['s_per_step']:.4f} vs "
+              f"{on['s_per_step']:.4f} s/step; kernel time of one step {off['device_ms']:.3f} "
+              f"vs {on['device_ms']:.3f} ms; peak memory {off['peak_bytes']} vs "
+              f"{on['peak_bytes']} bytes; K5 launches per step {on['sp_fused_geo_mlp']}, "
+              f"K1 {on['onehot_dmap']}", flush=True)
 
-    phase("small-input training agreement")
-    train_agreement_small(dev)
+    if "train_agreement" in todo:
+        phase("small-input training agreement")
+        train_agreement_small(dev)
+        train_agreement_small(dev, use_pallas_geo_mlp=True)
 
+    if set(todo) != set(PHASES):
+        print(f"partial run ({todo}): no result line", flush=True)
+        return 2
     for name, entry in entries.items():
         entry["launches"] = launches[name]
     print(json.dumps({"kernels": list(entries.values())}))

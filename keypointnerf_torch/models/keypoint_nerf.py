@@ -12,7 +12,9 @@ training:
                        with K1 for the coarse map's gradient, when
                        `train_matmul_gather_vjp`), view dropout in
                        training, relative spatial encoding, geometry MLP
-                       fusion and the IBR color head.
+                       fusion (one launch of kernel K5 or K4 for the
+                       encoding-and-MLP chain with `use_pallas_geo_mlp`)
+                       and the IBR color head.
   * `render_rays()`  — coarse + fine ray march: at eval with uniform
                        importance resampling and the exact coarse-value
                        reuse merge, in training with stratified jitter,
@@ -31,9 +33,10 @@ The modules keep the original KeypointNeRF state_dict layout
 f32; `cfg.compute_dtype` is the dtype the layers compute in. Point layout
 is (V, N, C), N = rays * samples flattened.
 
-The fast-preset flags, the flag-gated kernels and `remat` are later
-slices: a config that needs them raises NotImplementedError naming the
-ROADMAP item.
+The fast-preset flags, the other flag-gated kernels (`use_dma_gather`,
+`use_pallas_composite`) and `remat` are later slices: a config that needs
+them raises NotImplementedError naming the ROADMAP item.
+`pallas_interpret` is a config field the port ignores.
 """
 from __future__ import annotations
 
@@ -158,14 +161,23 @@ class KeypointNeRFConfig:
 
 
 def check_supported(cfg: KeypointNeRFConfig) -> None:
-    """Raise NotImplementedError for a flag this slice does not implement."""
+    """Raise NotImplementedError for a flag the port does not implement
+    yet, ValueError for a combination the model refuses."""
+    if cfg.use_pallas_geo_mlp and cfg.pool_mode:
+        raise ValueError(
+            "use_pallas_geo_mlp supports only the default mean/var pooling"
+            f" (pool_mode={cfg.pool_mode!r})")
+    if cfg.use_pallas_geo_mlp and cfg.nl_relu_approx:
+        # the fused kernels hardcode softplus100
+        raise ValueError(
+            "nl_relu_approx is not supported with use_pallas_geo_mlp "
+            "(the fused kernel applies softplus100)")
     unported = [
         (cfg.fused_feature_map, "fused_feature_map", "Queue 1 item 3 (fast slice)"),
         (cfg.gather_lerp, "gather_lerp", "Queue 1 item 3 (fast slice)"),
         (cfg.coarse_topk_ratio < 1.0, "coarse_topk_ratio < 1", "Queue 1 item 3 (fast slice)"),
         (cfg.fine_topk_ratio < 1.0, "fine_topk_ratio < 1", "Queue 1 item 3 (fast slice)"),
         (cfg.use_dma_gather, "use_dma_gather", "Queue 2 K3"),
-        (cfg.use_pallas_geo_mlp, "use_pallas_geo_mlp", "Queue 2 K4/K5"),
         (cfg.use_pallas_composite, "use_pallas_composite", "Queue 2 K6"),
         (cfg.separate_cf, "separate_cf", "Queue 1 item 2 (model remainder)"),
         (bool(cfg.pool_mode), f"pool_mode={cfg.pool_mode!r}", "Queue 1 item 2 (AttentionPool)"),
@@ -373,11 +385,30 @@ class KeypointNeRF(nn.Module):
         # relative spatial encoding
         pts_cam = world_to_cam(pts[None], vb.src_R, vb.src_t)       # (V, N, 3)
         kpt_cam = world_to_cam(vb.kpt3d[None], vb.src_R, vb.src_t)  # (V, Kp, 3)
-        sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam,
-                            z_ndc=zn, xy_ndc=xy)
-        out, valid, _, latent_fused = self.mlp_geo(
-            sp.to(cdt), [feat_coarse.to(cdt), feat_hd.to(cdt)],
-            mask.to(cdt), pw.to(cdt))
+        if c.use_pallas_geo_mlp:
+            # one kernel launch for the encoding-and-MLP chain; it takes f32
+            # inputs and rounds its dot operands to `cdt` itself (imported
+            # here: ops.fused_geo_mlp imports models.mlp)
+            from ..ops.fused_geo_mlp import geo_mlp_apply, sp_geo_mlp_apply
+
+            def f32(t):
+                return t.float().contiguous()
+
+            rest = (f32(feat_coarse), f32(feat_hd), f32(mask), f32(pw))
+        if c.use_pallas_geo_mlp and c.sp_type == "rel_z_decay":
+            out, valid, _, latent_fused = sp_geo_mlp_apply(           # K5
+                self.mlp_geo, f32(pts_cam), f32(kpt_cam), *rest, sp_level=c.sp_level,
+                sp_sigma=c.sp_sigma, sp_scale=c.sp_scale, compute_dtype=cdt)
+        else:
+            sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam,
+                                z_ndc=zn, xy_ndc=xy)
+            if c.use_pallas_geo_mlp:
+                out, valid, _, latent_fused = geo_mlp_apply(          # K4
+                    self.mlp_geo, f32(sp), *rest, compute_dtype=cdt)
+            else:
+                out, valid, _, latent_fused = self.mlp_geo(
+                    sp.to(cdt), [feat_coarse.to(cdt), feat_hd.to(cdt)],
+                    mask.to(cdt), pw.to(cdt))
 
         # color
         latent24 = dense(self.ibr_compress_gfeat, latent_fused, cdt)

@@ -4,16 +4,28 @@ from .feat_sample import (
     multiview_bilinear_sample,
     multiview_bilinear_sample_mm,
 )
+from .fused_geo_mlp import (
+    fold_weight_norm,
+    geo_mlp_apply,
+    mlp_stack_plain,
+    sp_geo_mlp_apply,
+    sp_mlp_stack_plain,
+)
 from .onehot_bilinear import multiview_onehot_bilinear_sample, onehot_bilinear_plain
 from .onehot_dmap import multiview_dmap_onehot, onehot_dmap_plain
 
 __all__ = [
     "DMAP_KERNEL_MIN_CHANNELS",
     "bilinear_sample",
+    "fold_weight_norm",
+    "geo_mlp_apply",
+    "mlp_stack_plain",
     "multiview_bilinear_sample",
     "multiview_bilinear_sample_mm",
     "multiview_dmap_onehot",
     "multiview_onehot_bilinear_sample",
     "onehot_bilinear_plain",
     "onehot_dmap_plain",
+    "sp_geo_mlp_apply",
+    "sp_mlp_stack_plain",
 ]

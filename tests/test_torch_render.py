@@ -142,6 +142,37 @@ def test_strict_render_matches_jax_ds1(world):
         assert _max_rel(jout[k], tout[k].numpy()) <= 1e-4, k
 
 
+@pytest.mark.parametrize("sp_type", ["rel_z_decay", "rel_z"])
+def test_strict_render_fused_geo_mlp_matches_jax(world, sp_type):
+    """use_pallas_geo_mlp on both sides (JAX: the Pallas kernels in
+    interpret mode; the port on the CPU: their plain versions behind the
+    same autograd.Function): rel_z_decay routes to the sp-fused K5, rel_z
+    to K4 on `spatial_encode`'s output. Same bar as the flag-off render,
+    and the flag changes the port's own image by rounding only."""
+    from keypointnerf_torch.ops import geo_mlp_apply, sp_geo_mlp_apply
+
+    flags = dict(use_pallas_geo_mlp=True, sp_type=sp_type)
+    jc, tc = (dataclasses.replace(c, **flags) for c in (world["jc"], world["tc"]))
+    jout = jax.tree.map(np.asarray, jax_render(JaxModel(jc), world["params"], world["jvb"],
+                                               height=SIZE, width=SIZE, chunk=CHUNK))
+    model = tm.KeypointNeRF(tc, device="cpu")
+    model.load_state_dict(world["model"].state_dict())
+    before = (geo_mlp_apply.launches, sp_geo_mlp_apply.launches)
+    tout = render_image(model, world["tvb"], height=SIZE, width=SIZE, chunk=CHUNK)
+    assert (geo_mlp_apply.launches, sp_geo_mlp_apply.launches) == before   # CPU: plain
+    assert float(np.asarray(jout["acc_fine"]).max()) > 0.5
+    assert float(tout["cull_overflow"].max()) == 0.0
+    for k in ("rgb_coarse", "depth_coarse", "acc_coarse", "rgb_fine", "depth_fine",
+              "acc_fine", "sdf_fine"):
+        assert tout[k].shape == jout[k].shape, k
+        assert _max_rel(jout[k], tout[k].numpy()) <= 1e-4, k
+    off = tm.KeypointNeRF(dataclasses.replace(tc, use_pallas_geo_mlp=False), device="cpu")
+    off.load_state_dict(world["model"].state_dict())
+    ref = render_image(off, world["tvb"], height=SIZE, width=SIZE, chunk=CHUNK)
+    for k, v in ref.items():
+        assert _max_rel(v.numpy(), tout[k].numpy()) <= 1e-4, k
+
+
 def test_culled_render_bitwise_equals_unculled(world):
     """The port's empty-ray cull is exact: bit-equal to marching every ray
     (mirrors tests/test_model.py::test_cull_empty_rays_exact)."""
@@ -238,7 +269,7 @@ def test_union_path_and_cull_guards(world):
 
 @pytest.mark.parametrize("flag", [
     dict(fused_feature_map=True), dict(gather_lerp=True), dict(use_dma_gather=True),
-    dict(use_pallas_geo_mlp=True), dict(use_pallas_composite=True),
+    dict(use_pallas_composite=True),
     dict(coarse_topk_ratio=0.5), dict(fine_topk_ratio=0.75), dict(separate_cf=True),
     dict(pool_mode="attention_v0"),
 ])
@@ -246,6 +277,24 @@ def test_unported_flags_raise(flag):
     cfg = dataclasses.replace(tm.KeypointNeRFConfig(**TINY), **flag)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.KeypointNeRF(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flag,match", [
+    (dict(pool_mode="attention_v0"), "mean/var pooling"),
+    (dict(nl_relu_approx=True), "softplus100"),
+])
+def test_fused_geo_mlp_refuses_what_jax_refuses(flag, match):
+    """use_pallas_geo_mlp with pool_mode or nl_relu_approx is a ValueError,
+    as in the JAX model's setup; alone it builds."""
+    cfg = dataclasses.replace(tm.KeypointNeRFConfig(**TINY), use_pallas_geo_mlp=True)
+    tm.KeypointNeRF(cfg, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        tm.KeypointNeRF(dataclasses.replace(cfg, **flag), device="cpu")
+    jcfg = JaxConfig(**TINY, use_pallas_geo_mlp=True, **flag)
+    vb = JaxViewBatch(**jax.tree.map(jnp.asarray, make_sample(SyntheticConfig(image_size=16))))
+    with pytest.raises(ValueError, match=match):
+        jax.eval_shape(lambda: JaxModel(jcfg).init(
+            {"params": jax.random.key(0), "render": jax.random.key(1)}, vb, True))
 
 
 def test_training_calls_raise(world):

@@ -143,8 +143,8 @@ class _InjectedDraws:
             assert not self.queue, f"{len(self.queue)} draws left unused"
 
 
-def _run(vjp: bool, dtype: str = "float32"):
-    extra = ZJU if vjp else dict(ZJU, train_matmul_gather_vjp=False)
+def _run(vjp: bool, dtype: str = "float32", **flags):
+    extra = dict(ZJU if vjp else dict(ZJU, train_matmul_gather_vjp=False), **flags)
     jc = JaxConfig(**TINY, **extra, pallas_interpret=True, compute_dtype=getattr(jnp, dtype))
     tc = tm.KeypointNeRFConfig(**TINY, **extra, compute_dtype=getattr(torch, dtype))
     sample = _sample()
@@ -196,9 +196,15 @@ def _run(vjp: bool, dtype: str = "float32"):
     )
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["matmul_vjp", "gather_vjp"])
+@pytest.fixture(scope="module", params=["matmul_vjp", "gather_vjp", "fused_geo_mlp"])
 def step(request):
-    return _run(request.param)
+    """The zju recipe; without the matmul VJP; and with use_pallas_geo_mlp
+    on both sides (JAX: the sp-fused Pallas kernel in interpret mode and
+    its recompute VJP; the port: the same autograd.Function, whose forward
+    is the plain version on the CPU)."""
+    if request.param == "fused_geo_mlp":
+        return _run(True, use_pallas_geo_mlp=True)
+    return _run(request.param == "matmul_vjp")
 
 
 def test_train_step_losses(step):
