@@ -10,7 +10,9 @@ Phases (any failure exits nonzero):
      process per source, all at once) into build/kernels/;
   3. kernels: each kernel (K2 the tex lookup, K1 the coarse map's
      gradient, K4 / K5 the fused geometry MLP without / with the in-kernel
-     spatial encoding) against its plain PyTorch version on the card at
+     spatial encoding, K3 the fused map's patch-gather lookup, K6 the fused
+     composite + importance placement) against its plain PyTorch version
+     on the card at
      the main paths' shapes (render query and, for K5, the training
      step's two queries; and an odd or ragged shape), with its time,
      the plain version's time, one PyTorch library call's time where there
@@ -26,9 +28,16 @@ Phases (any failure exits nonzero):
      cull_overflow == 0 and each kernel's launch count in that render, and
      that the culled render is bit-equal to marching every ray; prints
      wall-clock rays/s (beside the same render with dot_f32's earlier bf16
-     product) and the render's top CUDA kernels by device time;
-  5. agreement: a toy-size f32 render on the card against the same render
-     on the CPU (the path the CPU tests hold against the JAX package);
+     product) and the render's top CUDA kernels by device time; then the
+     same camera with `use_pallas_geo_mlp` (K5), a 256² `rel_z` camera
+     (K4), the camera with the fused feature map and K3 (cull on its mask
+     channel: overflow 0, culled == unculled bit for bit, K2 never
+     launched; held against the plain lookup of the fused map) and, at
+     stride 2 with the cull off, the fused map with K3 and K6 (held
+     against composite + importance_z);
+  5. agreement: toy-size f32 renders on the card against the same renders
+     on the CPU (the paths the CPU tests hold against the JAX package),
+     with each kernel's flag off and on;
   6. train: optimizer steps of the configs/zju.json recipe at full width
      (bf16, 64x64 patch, 64+64 samples, matmul VJP with K1, VGG loss on
      random frozen VGG19, Adam 5e-4) on the synthetic 512² scene: 2
@@ -50,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -88,6 +98,24 @@ def cuda_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, name, iters=20) -> float:
+    """Mean device time in ms, per call of fn(), of the CUDA kernels whose
+    name contains `name` (from the profiler: a call's CUDA-event time also
+    holds the host's work when the kernel is shorter than it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(e) for e in prof.key_averages() if name in e.key)
+    if us <= 0:
+        raise SystemExit(f"the profile shows no device time for a kernel named {name}")
+    return us / 1e3 / iters
 
 
 def phase(name):
@@ -152,6 +180,186 @@ def check_onehot_bilinear(dev) -> dict:
                       f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, "
                       f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
                       f"{n_bytes} bytes, {n_ops} flops)", flush=True)
+    return entry
+
+
+def ray_like_xy(rs, V, n_rays, n_samples, spread=0.6, length=0.3):
+    """(V, n_rays * n_samples, 2) f32 NDC points as a render query gives
+    them: each ray's samples on a short segment of an epipolar line, so
+    neighbouring points read neighbouring patches."""
+    start = rs.uniform(-spread, spread, (V, n_rays, 1, 2))
+    ang = rs.uniform(0.0, 2.0 * np.pi, (V, n_rays, 1))
+    step = np.stack([np.cos(ang), np.sin(ang)], axis=-1) * length / n_samples
+    xy = start + step * np.arange(n_samples)[None, None, :, None]
+    return xy.reshape(V, -1, 2).astype(np.float32)
+
+
+def touched_map_bytes(maps, xy):
+    """Bytes of the distinct map pixels whose rows a bilinear lookup of xy
+    reads (the four corners of each point): what this run's data needs."""
+    from keypointnerf_torch.ops.feat_sample import bilinear_coords
+
+    V, H, W, C = maps.shape
+    x0, y0, _, _ = bilinear_coords(xy, H, W)
+    base = (torch.arange(V, device=xy.device)[:, None] * H + y0) * W + x0
+    corners = torch.cat([base + off for off in (0, 1, W, W + 1)], dim=1)
+    return int(torch.unique(corners).numel()) * C * maps.element_size()
+
+
+def check_dma_gather(dev) -> dict:
+    """K3 against its plain version; returns its kernels-line entry. Both
+    round each lerp the same way (bf16: every step; f32: one rounding of
+    the f64 a + w * d), so they are held bit for bit."""
+    from keypointnerf_torch.ops import dma_gather as k3
+
+    rs = np.random.default_rng(4)
+    V, H, W, C = 3, 512, 512, 84                       # the fused 512² map
+    maps32 = torch.as_tensor(rs.normal(size=(V, H, W, C)).astype(np.float32), device=dev)
+    # the render query's shape (2048 rays x 64 samples, ray-coherent), and a
+    # ragged N of uniform points reaching outside [-1, 1]
+    cases = (("render", 2048 * 64, ray_like_xy(rs, V, 2048, 64)),
+             ("ragged", 100_003, rs.uniform(-1.3, 1.3, (V, 100_003, 2)).astype(np.float32)))
+    entry = None
+    for what, N, xy_np in cases:
+        xy = torch.as_tensor(xy_np, device=dev)
+        for dt in (torch.bfloat16, torch.float32):
+            maps = maps32.to(dt).contiguous()
+            got = k3.multiview_bilinear_sample_dma(maps, xy)
+            ref = k3.dma_gather_plain(maps, xy)
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got.float()).all())
+            err = (got.float() - ref.float()).abs().max().item()
+            ok = finite and err == 0.0 and got.shape == (V, N, C) and got.dtype == dt
+            print(f"K3 dma_gather {V}x{H}x{W}x{C} {str(dt)[6:]} N={N} ({what}): "
+                  f"max_abs_err={err} (bound 0.0), finite {finite} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                raise SystemExit(f"K3 disagrees with its plain version: {err}")
+            if what == "render" and dt == torch.bfloat16:
+                nchw = maps.permute(0, 3, 1, 2).contiguous()   # the yardstick's layout
+                grid = xy[:, None].to(dt)                       # (V, 1, N, 2)
+                call_ms = cuda_ms(lambda: k3.multiview_bilinear_sample_dma(maps, xy))
+                ms = kernel_device_ms(lambda: k3.multiview_bilinear_sample_dma(maps, xy),
+                                      "dma_gather_kernel")
+                plain_ms = cuda_ms(lambda: k3.dma_gather_plain(maps, xy), iters=10)
+                library_ms = cuda_ms(lambda: F.grid_sample(
+                    nchw, grid, mode="bilinear", padding_mode="border", align_corners=True))
+                esize = maps.element_size()
+                map_bytes = touched_map_bytes(maps, xy)
+                n_bytes = map_bytes + xy.numel() * 4 + V * N * C * esize
+                # per point ~14 flops of coordinates and weights; per output
+                # value three lerps of 3 operations each
+                n_ops = V * N * (14 + 9 * C)
+                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+                t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+                entry = {
+                    "name": "dma_gather", "route": "cuda",
+                    "source": "keypointnerf_torch/csrc/dma_gather.cu",
+                    "replaces": "keypointnerf_tpu/ops/pallas/dma_gather.py:80",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": library_ms, "call_ms": call_ms,
+                }
+                print(f"K3 timing (bf16, {V}x{H}x{W}x{C}, N={N}, ray-coherent points): kernel "
+                      f"{ms:.4f} ms of device time ({call_ms:.4f} ms a call by CUDA events), plain {plain_ms:.4f} ms, grid_sample (NCHW copy) "
+                      f"{library_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+                      f"({entry['bound_by']}: {n_bytes} bytes, of them {map_bytes} of the "
+                      f"{maps.numel() * esize} map bytes this query touches; {n_ops} flops)",
+                      flush=True)
+    return entry
+
+
+# K6 against its plain version: the scans and sums run in another order (a
+# warp's shuffles against torch's cumsum / sum). Absolute bounds, the
+# outputs O(1) (color, acc, contrib, sdf) and O(5) (depth): measured 2.4e-7
+# and 9.5e-7 worst, pinned at 1e-6 and 5e-6 (the JAX package holds its K6
+# against the XLA composite at 2e-5 / 2e-4, tests/test_pallas.py:348-357).
+# z_fine cannot be held by a small max: in a bin the coarse pass left
+# empty, den = 1e-5 / sum(cint) sits at the den < 1e-5 switch when the ray
+# is opaque, and the inverse CDF there divides cdf rounding by ~1e-5. A
+# fine depth then moves within its bin, or across two if an edge flips
+# too: "z_fine" is the move as a share of the ray's widest bin (measured
+# 0.955, bound 2); its mean measured 3.7e-6, pinned at 2e-5.
+K6_BOUNDS = {"color": 1e-6, "depth": 5e-6, "acc": 1e-6, "sdf": 5e-6, "contrib": 1e-6,
+             "z_fine": 2.0, "z_fine_mean": 2e-5}
+
+
+def composite_inputs(rs, R, S, F, dev):
+    """Ray-shaped K6 inputs: stratified depths in [2, 5] with jitter, random
+    densities with 64 all-zero and 64 opaque rays, random sdf and colors,
+    u = linspace(0, 1, F) as the render passes it."""
+    from keypointnerf_torch.geometry.sampling import linspace01
+
+    near = rs.uniform(2.0, 3.0, (R, 1))
+    far = near + rs.uniform(1.0, 2.0, (R, 1))
+    t = (np.arange(S) + rs.uniform(0.0, 0.9, (R, S))) / S
+    z = near + (far - near) * t
+    alpha = np.maximum(rs.normal(size=(R, S)), 0.0) * rs.uniform(0.0, 20.0, (R, 1))
+    alpha[:64] = 0.0
+    alpha[64:128] = 1e3
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    u = linspace01(F, torch.float32, dev).expand(R, F).contiguous()
+    return (f32(z), f32(alpha), f32(rs.normal(size=(R, S))), f32(rs.uniform(size=(R, S, 3))), u)
+
+
+def check_composite_importance(dev) -> dict:
+    """K6 against its plain version; returns its kernels-line entry."""
+    from keypointnerf_torch.ops import composite_importance as k6
+
+    rs = np.random.default_rng(6)
+    names = ("color", "depth", "acc", "sdf", "contrib", "z_fine")
+    entry = None
+    # the render's shape (one 2048-ray chunk, 64 + 64 samples) and a ragged R
+    for R, S, F in ((2048, 64, 64), (1237, 64, 64)):
+        ins = composite_inputs(rs, R, S, F, dev)
+        got = k6.fused_composite_importance(*ins)
+        ref = k6.composite_importance_plain(*ins)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b in zip(names, ref, got):
+            if a.shape != b.shape or not bool(torch.isfinite(b).all()):
+                raise SystemExit(f"K6 {name}: shape differs or not finite")
+            errs[name] = (a - b).abs().max().item()
+        z_mid = 0.5 * (ins[0][:, 1:] + ins[0][:, :-1])
+        widest = (z_mid[:, 1:] - z_mid[:, :-1]).amax(dim=-1, keepdim=True)
+        errs["z_fine_abs"] = errs["z_fine"]
+        errs["z_fine"] = ((ref[5] - got[5]).abs() / widest).max().item()
+        errs["z_fine_mean"] = (ref[5] - got[5]).abs().mean().item()
+        moved = int(((ref[5] - got[5]).abs() > 1e-4).sum())
+        ok = all(errs[k] <= K6_BOUNDS[k] for k in K6_BOUNDS)
+        print(f"K6 composite_importance R={R} S={S} F={F}: max abs errors "
+              f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (bounds {K6_BOUNDS}); "
+              f"{moved} of {R * F} fine depths moved by > 1e-4 {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise SystemExit("K6 disagrees with its plain version")
+        if R == 2048:
+            call_ms = cuda_ms(lambda: k6.fused_composite_importance(*ins), iters=100)
+            ms = kernel_device_ms(lambda: k6.fused_composite_importance(*ins),
+                                  "composite_importance_kernel")
+            plain_ms = cuda_ms(lambda: k6.composite_importance_plain(*ins), iters=10)
+            n_bytes = 4 * R * (6 * S + F) + 4 * R * (S + F + 6)
+            # per sample ~20 (alpha, log1p, exp, five products and sums);
+            # per fine depth (S-1) edges x ~6 compare-and-select, ~10 after
+            n_ops = R * (20 * S + F * (6 * (S - 1) + 10))
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+            entry = {
+                "name": "composite_importance", "route": "cuda",
+                "source": "keypointnerf_torch/csrc/composite_importance.cu",
+                "replaces": "keypointnerf_tpu/ops/pallas/composite_kernel.py:133",
+                "max_abs_err": max(errs[k] for k in names[:5] + ("z_fine_abs",)),
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "call_ms": call_ms,
+            }
+            print(f"K6 timing (R={R}, S={S}, F={F}): kernel {ms:.4f} ms of device time "
+                  f"({call_ms:.4f} ms a call by CUDA events: the wrapper's host work), plain {plain_ms:.4f} "
+                  f"ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}: {n_bytes} bytes "
+                  f"= {t_bytes:.5f} ms, {n_ops} flops = {t_ops:.5f} ms); no single PyTorch "
+                  f"call computes this function (library_ms null)", flush=True)
     return entry
 
 
@@ -488,7 +696,8 @@ def profile_kernels(fn, top):
     events = [e for e in prof.key_averages()
               if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
     total = sum(device_us(e) for e in events) / 1e3
-    print(f"profile: device time {total:.3f} ms", flush=True)
+    print(f"profile: device time {total:.3f} ms in {sum(e.count for e in events)} kernel "
+          f"launches", flush=True)
     for e in sorted(events, key=lambda e: -device_us(e))[:top]:
         print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}", flush=True)
     return total
@@ -723,6 +932,157 @@ def render_rel_z(dev) -> int:
     compare_renders(outs[False], outs[True], "256² rel_z render, K4 on vs off",
                     K4_RENDER_BOUNDS)
     return launches
+
+
+# The fused-map render with K3 against the same render with the plain
+# lookup of the fused map (use_dma_gather off): K3's three lerps and the
+# lookup's four-term sum round bf16 at other places, so as for K5 a few rays
+# flip whole; held by (mean, share) as in compare_renders: measured 1.54e-4
+# (acc_fine) and 2.25e-4, pinned at 3e-4 and 5e-4.
+K3_RENDER_BOUNDS = (3e-4, 5e-4)
+# The K6 render against the same render through composite + importance_z:
+# the coarse outputs differ by the sums' order only (max bound, as a share
+# of each output's max, depth as its numerator: measured 3.6e-7, pinned at
+# 1e-6), the fine ones through the fine depths the den switch or an edge
+# flip moves (mean measured 1.8e-7, no entry off by 1%; pinned at 5e-7 and
+# a share of 1e-5). Both renders are deterministic.
+K6_COARSE_BOUND = 1e-6
+K6_RENDER_BOUNDS = (5e-7, 1e-5)
+
+
+def render_fused_map(dev, ctx) -> dict:
+    """The 512² strict camera with the fused feature map and K3 (K2 must not
+    run), the cull on; returns the launch counts of the timed render and
+    the config the K6 render builds on."""
+    from keypointnerf_torch.models import KeypointNeRF
+    from keypointnerf_torch.ops import multiview_bilinear_sample_dma as k3
+    from keypointnerf_torch.ops import multiview_onehot_bilinear_sample as k2
+    from keypointnerf_torch.render import render_image
+
+    size, chunk, vb = ctx["size"], ctx["chunk"], ctx["vb"]
+    cfg = dataclasses.replace(ctx["cfg"], fused_feature_map=True, use_dma_gather=True)
+    models = {}
+    for name, over in (("dma", {}), ("plain", dict(use_dma_gather=False)),
+                       ("unculled", dict(cull_empty_rays_ratio=1.0))):
+        models[name] = KeypointNeRF(dataclasses.replace(cfg, **over), device=dev, seed=0)
+        models[name].load_state_dict(ctx["model"].state_dict())
+    model = models["dma"]
+    feats = model.encode(vb.src_images, vb.src_masks)
+    print(f"fused map {tuple(feats['fused'].shape)} {feats['fused'].dtype}", flush=True)
+    render = lambda: render_image(model, vb, height=size, width=size, chunk=chunk)  # noqa: E731
+    render()                                              # warm-up
+    torch.cuda.synchronize()
+    k2.launches = k3.launches = 0                         # counts of this render only
+    t0 = time.perf_counter()
+    out = render()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"dma_gather": k3.launches, "onehot_bilinear": k2.launches}
+    n_rays = size * size
+    overflow = float(out["cull_overflow"].max())
+    for k, v in out.items():
+        if not bool(torch.isfinite(v).all()):
+            raise SystemExit(f"fused-map render output {k} is not finite")
+    print(f"render 512² strict bf16, fused map + K3: {seconds:.4f} s, {n_rays / seconds:.1f} "
+          f"rays/s; cull_overflow={overflow}; K3 launches {launches['dma_gather']} (expected "
+          f"{ctx['expected']}), K2 {launches['onehot_bilinear']} (expected 0); acc_fine>0 rays "
+          f"{int((out['acc_fine'] > 0).sum())}", flush=True)
+    if overflow != 0.0:
+        raise SystemExit("empty-ray cull budget exceeded on the fused-map render")
+    if launches["dma_gather"] != ctx["expected"] or launches["onehot_bilinear"] != 0:
+        raise SystemExit("K3 must run once per query of the fused-map render, K2 never")
+
+    # the cull on the fused map's mask channel is exact: bit-equal to
+    # marching every ray
+    culled = render_image(model, vb, height=size, width=size, chunk=chunk, feats=feats)
+    full = render_image(models["unculled"], vb, height=size, width=size, chunk=chunk,
+                        feats=feats)
+    differ = [k for k in full if not torch.equal(full[k], culled[k])]
+    print(f"fused map: culled vs unculled 512² render: "
+          f"{'bit-equal' if not differ else 'DIFFER ' + str(differ)}", flush=True)
+    if differ:
+        raise SystemExit("the culled fused-map render differs from the unculled render")
+
+    plain = functools.partial(render_image, models["plain"], vb, height=size, width=size,
+                              chunk=chunk)
+    plain()                                               # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_out = plain()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    print(f"render 512² strict bf16, fused map, plain lookup: {plain_s:.4f} s, "
+          f"{n_rays / plain_s:.1f} rays/s", flush=True)
+    compare_renders(plain_out, out, "512² fused-map render, K3 vs the plain lookup",
+                    K3_RENDER_BOUNDS)
+    print(f"one render, fused map + K3 (wall {seconds * 1e3:.3f} ms):", flush=True)
+    profile_kernels(render, 10)
+    return dict(launches, cfg=cfg)
+
+
+def render_composite(dev, ctx, fused_cfg) -> dict:
+    """The fused-map + K3 config with use_pallas_composite (K6), the cull
+    off (the renderer refuses K6 with it): the 512² camera at stride 2,
+    65,536 rays. Returns the launch counts of the timed render."""
+    from keypointnerf_torch.models import KeypointNeRF
+    from keypointnerf_torch.ops import fused_composite_importance as k6
+    from keypointnerf_torch.ops import multiview_bilinear_sample_dma as k3
+    from keypointnerf_torch.render import render_image
+
+    size, chunk, vb = ctx["size"], ctx["chunk"], ctx["vb"]
+    stride = 2
+    cfg = dataclasses.replace(fused_cfg, cull_empty_rays_ratio=1.0)
+    outs, secs, launches, renders = {}, {}, {}, {}
+    for flag in (True, False):
+        model = KeypointNeRF(dataclasses.replace(cfg, use_pallas_composite=flag),
+                             device=dev, seed=0)
+        model.load_state_dict(ctx["model"].state_dict())
+        renders[flag] = functools.partial(render_image, model, vb, height=size, width=size,
+                                          stride=stride, chunk=chunk)
+        renders[flag]()                                   # warm-up
+        torch.cuda.synchronize()
+        k3.launches = k6.launches = 0                     # counts of this render only
+        t0 = time.perf_counter()
+        outs[flag] = renders[flag]()
+        torch.cuda.synchronize()
+        secs[flag] = time.perf_counter() - t0
+        launches[flag] = {"composite_importance": k6.launches, "dma_gather": k3.launches}
+    n_rays = (size // stride) ** 2
+    n_chunks = math.ceil(n_rays / chunk)
+    on = launches[True]
+    print(f"render 512² stride {stride} ({n_rays} rays) strict bf16, fused map + K3 + K6: "
+          f"{secs[True]:.4f} s, {n_rays / secs[True]:.1f} rays/s; K6 launches "
+          f"{on['composite_importance']} (expected {n_chunks}), K3 {on['dma_gather']} (expected "
+          f"{2 * n_chunks}); the same without K6: {secs[False]:.4f} s, "
+          f"{n_rays / secs[False]:.1f} rays/s, K6 {launches[False]['composite_importance']}",
+          flush=True)
+    if on["composite_importance"] != n_chunks or on["dma_gather"] != 2 * n_chunks \
+            or launches[False]["composite_importance"] != 0:
+        raise SystemExit("K6 must run once per chunk of the K6 render, K3 once per query")
+    ref, got = outs[False], outs[True]
+    worst = 0.0
+    for k in ("rgb_coarse", "acc_coarse", "depth_coarse"):
+        a, b = ref[k].float(), got[k].float()
+        if not bool(torch.isfinite(b).all()):
+            raise SystemExit(f"K6 render: output {k} is not finite")
+        if k == "depth_coarse":
+            a = a * (ref["acc_coarse"].float() + 1e-8)
+            b = b * (got["acc_coarse"].float() + 1e-8)
+        worst = max(worst, ((a - b).abs().max() / a.abs().max().clamp(min=1e-12)).item())
+    print(f"K6 render, coarse outputs against composite: worst {worst:.3e} of an output's max "
+          f"(bound {K6_COARSE_BOUND}; depth as its numerator)", flush=True)
+    if not worst <= K6_COARSE_BOUND:
+        raise SystemExit("K6's coarse outputs deviate from the plain composite's")
+    compare_renders({k: v for k, v in ref.items() if k.endswith("_fine")},
+                    {k: v for k, v in got.items() if k.endswith("_fine")},
+                    "512² stride-2 render, K6 vs composite + importance_z (fine outputs)",
+                    K6_RENDER_BOUNDS)
+    print(f"one render, fused map + K3 + K6 (wall {secs[True] * 1e3:.3f} ms):", flush=True)
+    profile_kernels(renders[True], 10)
+    print(f"one render, fused map + K3, composite + importance_z (wall "
+          f"{secs[False] * 1e3:.3f} ms):", flush=True)
+    profile_kernels(renders[False], 3)
+    return on
 
 
 def agreement_small(dev, **overrides) -> None:
@@ -982,7 +1342,9 @@ def main() -> int:
         phase("kernels against their plain versions")
         entries = {"onehot_bilinear": check_onehot_bilinear(dev),
                    "onehot_dmap": check_onehot_dmap(dev),
-                   **check_fused_geo_mlp(dev)}
+                   **check_fused_geo_mlp(dev),
+                   "dma_gather": check_dma_gather(dev),
+                   "composite_importance": check_composite_importance(dev)}
         check_dot_f32(dev)
 
     if "render" in todo:
@@ -991,6 +1353,12 @@ def main() -> int:
         launches.update(k2_launches)
         phase("full-width strict render with use_pallas_geo_mlp (K5)")
         launches["sp_fused_geo_mlp"] = render_fused(dev, ctx)["sp_fused_geo_mlp"]
+        phase("full-width strict render with the fused feature map (K3)")
+        fused = render_fused_map(dev, ctx)
+        launches["dma_gather"] = fused["dma_gather"]
+        phase("full-width strict render with the fused map, K3 and K6, stride 2")
+        launches["composite_importance"] = render_composite(
+            dev, ctx, fused["cfg"])["composite_importance"]
         del ctx
         phase("strict render with sp_type rel_z and use_pallas_geo_mlp (K4)")
         launches["fused_geo_mlp"] = render_rel_z(dev)
@@ -1000,6 +1368,9 @@ def main() -> int:
         agreement_small(dev)
         agreement_small(dev, use_pallas_geo_mlp=True)
         agreement_small(dev, use_pallas_geo_mlp=True, sp_type="rel_z")
+        agreement_small(dev, fused_feature_map=True, use_dma_gather=True)
+        agreement_small(dev, fused_feature_map=True, use_dma_gather=True,
+                        use_pallas_composite=True, cull_empty_rays_ratio=1.0)
 
     if "train" in todo:
         phase("full-width zju training steps")

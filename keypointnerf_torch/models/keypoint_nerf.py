@@ -5,20 +5,26 @@ training:
 
   * `encode()`       — pixel-aligned CNN features of the V source views,
                        per map plus the packed 12-ch "full" map
-                       [geo_hd 8 | src RGB 3 | fg mask 1] at input res.
+                       [geo_hd 8 | src RGB 3 | fg mask 1] at input res, or
+                       with `fused_feature_map` (eval) the 84-ch "fused"
+                       map [coarse 64 | hd 8 | tex 8 | RGB 3 | mask 1] on
+                       the input grid (or its half with `fused_map_half`).
   * `query_points()` — per-point evaluation: projection, validity, bilinear
-                       lookups (the tex map through kernel K2 when
-                       `tex_onehot_sample` at eval; the matmul-VJP lookup,
-                       with K1 for the coarse map's gradient, when
-                       `train_matmul_gather_vjp`), view dropout in
+                       lookups (one lookup of the fused map, through kernel
+                       K3 with `use_dma_gather` at eval; else the tex map
+                       through kernel K2 when `tex_onehot_sample` at eval;
+                       the matmul-VJP lookup, with K1 for the coarse map's
+                       gradient, when `train_matmul_gather_vjp`), view dropout in
                        training, relative spatial encoding, geometry MLP
                        fusion (one launch of kernel K5 or K4 for the
                        encoding-and-MLP chain with `use_pallas_geo_mlp`)
                        and the IBR color head.
   * `render_rays()`  — coarse + fine ray march: at eval with uniform
-                       importance resampling and the exact coarse-value
-                       reuse merge, in training with stratified jitter,
-                       random importance samples and the sorted union.
+                       importance resampling (with `use_pallas_composite`
+                       one launch of kernel K6 for the coarse composite and
+                       the fine depths) and the exact coarse-value reuse
+                       merge, in training with stratified jitter, random
+                       importance samples and the sorted union.
   * `forward()`      — JAX's `__call__`: encode, a training patch (or the
                        full image at eval), the march and the targets.
 
@@ -33,8 +39,8 @@ The modules keep the original KeypointNeRF state_dict layout
 f32; `cfg.compute_dtype` is the dtype the layers compute in. Point layout
 is (V, N, C), N = rays * samples flattened.
 
-The fast-preset flags, the other flag-gated kernels (`use_dma_gather`,
-`use_pallas_composite`) and `remat` are later slices: a config that needs
+The fast preset's approximations (gather-lerp, the top-k culls), the
+fused map in training and `remat` are later slices: a config that needs
 them raises NotImplementedError naming the ROADMAP item.
 `pallas_interpret` is a config field the port ignores.
 """
@@ -61,13 +67,16 @@ from ..geometry.cameras import (
     project_points,
     world_to_cam,
 )
-from ..geometry.compositing import composite
+from ..geometry.compositing import CompositeOut, composite
 from ..geometry.sampling import (
     importance_z,
+    linspace01,
     merge_sorted_payloads,
     stratified_z,
     union_sorted_z,
 )
+from ..ops.composite_importance import fused_composite_importance
+from ..ops.dma_gather import multiview_bilinear_sample_dma
 from ..ops.feat_sample import multiview_bilinear_sample, multiview_bilinear_sample_mm
 from ..ops.onehot_bilinear import multiview_onehot_bilinear_sample
 from .cnn import ConvTranspose2d, HGFilter, ResBlkEncoder, avg_pool2
@@ -173,12 +182,9 @@ def check_supported(cfg: KeypointNeRFConfig) -> None:
             "nl_relu_approx is not supported with use_pallas_geo_mlp "
             "(the fused kernel applies softplus100)")
     unported = [
-        (cfg.fused_feature_map, "fused_feature_map", "Queue 1 item 3 (fast slice)"),
         (cfg.gather_lerp, "gather_lerp", "Queue 1 item 3 (fast slice)"),
         (cfg.coarse_topk_ratio < 1.0, "coarse_topk_ratio < 1", "Queue 1 item 3 (fast slice)"),
         (cfg.fine_topk_ratio < 1.0, "fine_topk_ratio < 1", "Queue 1 item 3 (fast slice)"),
-        (cfg.use_dma_gather, "use_dma_gather", "Queue 2 K3"),
-        (cfg.use_pallas_composite, "use_pallas_composite", "Queue 2 K6"),
         (cfg.separate_cf, "separate_cf", "Queue 1 item 2 (model remainder)"),
         (bool(cfg.pool_mode), f"pool_mode={cfg.pool_mode!r}", "Queue 1 item 2 (AttentionPool)"),
         (cfg.remat, "remat", "Queue 1 item 1 (remat)"),
@@ -286,11 +292,21 @@ class KeypointNeRF(nn.Module):
 
         src_images (V, H, W, 3) in [0, 1]. Returns {"geo": [coarse
         (V, H/4, W/4, 64), hires (V, H, W, 8)], "tex": (V, H/2, W/2, 8)}
-        in the compute dtype, channels last and contiguous, plus "full"
-        (V, H, W, 12) = [hires | src RGB | mask] when `src_masks` is given
-        and the hires map is at input resolution. `train` changes nothing
-        here (the fused map that it would leave unpadded is not ported);
-        gradients flow when autograd is on.
+        in the compute dtype, channels last and contiguous, plus, when
+        `src_masks` is given and the hires map is at input resolution:
+
+        * with `fused_feature_map`, "fused" (V, Hm, Wm, 84) = [coarse 64 |
+          hires 8 | tex 8 | src RGB 3 | mask 1] in the compute dtype, the
+          coarse and tex maps upsampled onto the pixel grid by the bilinear
+          lookup; Hm, Wm = H, W, or H // 2, W // 2 with `fused_map_half`
+          and min(H, W) >= `fused_map_half_min_side` (hires / RGB / mask
+          then resampled onto the half grid by one lookup). The JAX model
+          pads it to 128 channels for K3's DMA slices on the TPU; the port
+          leaves it at 84 (csrc/dma_gather.cu reads any C). Eval only:
+          `train=True` raises NotImplementedError;
+        * otherwise "full" (V, H, W, 12) = [hires | src RGB | mask].
+
+        Gradients flow when autograd is on.
         """
         x = (2.0 * src_images - 1.0).to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
         x_geo = x
@@ -303,9 +319,34 @@ class KeypointNeRF(nn.Module):
         coarse, hd = self.geo_encoder(x_geo)
         feats = {"geo": [nhwc(coarse), nhwc(hd)], "tex": nhwc(self.tex_encoder(x_tex))}
         hd = feats["geo"][1]
-        if src_masks is not None and hd.shape[1:3] == src_images.shape[1:3]:
-            feats["full"] = torch.cat(
-                [hd, src_images.to(hd.dtype), src_masks.to(hd.dtype)], dim=-1)
+        if src_masks is None or hd.shape[1:3] != src_images.shape[1:3]:
+            return feats
+        dt = hd.dtype
+        hd_rgb_mask = torch.cat([hd, src_images.to(dt), src_masks.to(dt)], dim=-1)
+        if not self.cfg.fused_feature_map:
+            feats["full"] = hd_rgb_mask
+            return feats
+        if train:
+            raise NotImplementedError(
+                "fused_feature_map in training is not ported yet: ROADMAP Queue 1 "
+                "item 8 (the fused map in training)")
+        V, H, W = src_images.shape[:3]
+        half = (self.cfg.fused_map_half
+                and min(H, W) >= self.cfg.fused_map_half_min_side)
+        Hm, Wm = (H // 2, W // 2) if half else (H, W)
+        grid = pixel_grid(Hm, Wm, device=src_images.device).float()
+        xy = torch.stack([2.0 * grid[:, 0] / (Wm - 1.0) - 1.0,
+                          2.0 * grid[:, 1] / (Hm - 1.0) - 1.0], dim=-1)
+        xy = xy[None].expand(V, -1, -1)
+        up_coarse = multiview_bilinear_sample(feats["geo"][0], xy).reshape(V, Hm, Wm, -1)
+        up_tex = multiview_bilinear_sample(feats["tex"], xy).reshape(V, Hm, Wm, -1)
+        if half:
+            hd_rgb_mask = multiview_bilinear_sample(hd_rgb_mask, xy).reshape(V, Hm, Wm, -1)
+        # [coarse | hd | tex | rgb | mask]: query_points slices by this layout
+        hd_ch = self.cfg.geo_out_ch_hd
+        feats["fused"] = torch.cat(
+            [up_coarse.to(dt), hd_rgb_mask[..., :hd_ch], up_tex.to(dt),
+             hd_rgb_mask[..., hd_ch:]], dim=-1)
         return feats
 
     # ----------------------------------------------------------------- query
@@ -343,7 +384,21 @@ class KeypointNeRF(nn.Module):
                                      pallas_dmap=c.train_pallas_dmap)
         else:
             mvbs = multiview_bilinear_sample
-        if "full" in feats:
+        feat_coarse = feat_xy = None
+        if "fused" in feats:
+            # one lookup of the packed map gives every per-point feature
+            if c.use_dma_gather and not train:
+                fx = multiview_bilinear_sample_dma(feats["fused"], xy.float().contiguous())  # K3
+            else:
+                fx = mvbs(feats["fused"], xy)
+            co_ch, tx_ch = c.geo_out_ch, c.tex_out_ch
+            feat_coarse = fx[..., :co_ch]
+            feat_hd = fx[..., co_ch : co_ch + hd_ch]
+            feat_xy = fx[..., co_ch + hd_ch : co_ch + hd_ch + tx_ch]
+            base = co_ch + hd_ch + tx_ch
+            img_xy = fx[..., base : base + 3]
+            fg = fx[..., base + 3 : base + 4]
+        elif "full" in feats:
             if c.train_matmul_gather_vjp:
                 # the RGB / mask channels' gradients die at the input
                 # leaves: only the hd prefix gets a map gradient
@@ -376,10 +431,11 @@ class KeypointNeRF(nn.Module):
         pw = pw * mask
         pw = (pw / (pw.sum(dim=0, keepdim=True) + 1e-6)).detach()
 
-        feat_coarse = mvbs(feats["geo"][0], xy)
-        if c.tex_onehot_sample and not train:
+        if feat_coarse is None:
+            feat_coarse = mvbs(feats["geo"][0], xy)
+        if feat_xy is None and c.tex_onehot_sample and not train:
             feat_xy = multiview_onehot_bilinear_sample(feats["tex"], xy)  # K2
-        else:
+        elif feat_xy is None:
             feat_xy = mvbs(feats["tex"], xy)
 
         # relative spatial encoding
@@ -477,7 +533,16 @@ class KeypointNeRF(nn.Module):
         alpha = alpha.reshape(Rn, c.n_coarse)
         sdf = sdf.reshape(Rn, c.n_coarse)
         rgb = rgb.reshape(Rn, c.n_coarse, 3)
-        coarse = composite(alpha, sdf, rgb, z)
+        use_pc = not train and fine and c.use_pallas_composite
+        if use_pc:
+            # one K6 launch: the coarse composite and the fine depths
+            u = linspace01(c.n_fine, z.dtype, z.device)
+            color, depth, acc, sdf_c, contrib, z_fine = fused_composite_importance(
+                z.contiguous(), alpha.contiguous(), sdf.contiguous(), rgb.contiguous(),
+                u.expand(Rn, c.n_fine).contiguous())
+            coarse = CompositeOut(color, depth, acc, contrib, sdf_c)
+        else:
+            coarse = composite(alpha, sdf, rgb, z)
         out = {
             "rgb_coarse": coarse.color,
             "depth_coarse": coarse.depth,
@@ -486,10 +551,11 @@ class KeypointNeRF(nn.Module):
         if not fine:
             return out
 
-        # importance resampling over interior bins, evenly spaced u at eval
-        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
-        z_fine = importance_z(coarse.contrib[..., 1:-1].detach(), z_mid, c.n_fine,
-                              u=None if draws is None else draws.importance_u)
+        if not use_pc:
+            # importance resampling over interior bins, evenly spaced u at eval
+            z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+            z_fine = importance_z(coarse.contrib[..., 1:-1].detach(), z_mid, c.n_fine,
+                                  u=None if draws is None else draws.importance_u)
 
         # the reuse merge is exact only for a deterministic query (eval)
         if c.reuse_coarse_eval and not train:

@@ -1,3 +1,5 @@
+from .composite_importance import composite_importance_plain, fused_composite_importance
+from .dma_gather import dma_gather_plain, multiview_bilinear_sample_dma
 from .feat_sample import (
     DMAP_KERNEL_MIN_CHANNELS,
     bilinear_sample,
@@ -17,10 +19,14 @@ from .onehot_dmap import multiview_dmap_onehot, onehot_dmap_plain
 __all__ = [
     "DMAP_KERNEL_MIN_CHANNELS",
     "bilinear_sample",
+    "composite_importance_plain",
+    "dma_gather_plain",
     "fold_weight_norm",
+    "fused_composite_importance",
     "geo_mlp_apply",
     "mlp_stack_plain",
     "multiview_bilinear_sample",
+    "multiview_bilinear_sample_dma",
     "multiview_bilinear_sample_mm",
     "multiview_dmap_onehot",
     "multiview_onehot_bilinear_sample",

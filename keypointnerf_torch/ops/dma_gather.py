@@ -1,0 +1,129 @@
+"""K3: the patch-gather bilinear lookup of the fused feature map.
+
+Replaces the Pallas kernel `keypointnerf_tpu/ops/pallas/dma_gather.py`
+(`dma_bilinear_sample`, reached through
+`ops/feat_sample.py:multiview_bilinear_sample_dma`), which the JAX model
+calls for the fused map when `use_dma_gather` is set at eval. The TPU
+kernel streams each point's (2, 2, C) patch from HBM with a ring of async
+copies and blends it with three lerps:
+
+  wx, wy  rounded to the map dtype
+  top  = p00 + wx * (p01 - p00)
+  bot  = p10 + wx * (p11 - p10)
+  out  = top + wy * (bot - top)
+
+which is not `multiview_bilinear_sample`'s four-term weighted sum: the two
+differ in the last bits, in f32 too. How each lerp rounds follows what the
+JAX package's program computes on the CPU (tests/test_torch_fused_map.py):
+
+  * bf16 maps: every difference, product and sum is rounded to bf16;
+  * f32 maps: `a + w * d` is one fused multiply-add (the difference `d`
+    rounded to f32 first). Both versions form it in f64 (the product of
+    two f32 values is exact there) and round once to f32; this equals the
+    FMA except where the f64 sum's own rounding lands on an f32 tie.
+
+Channels need no padding: the TPU kernel's 128-lane pad is a layout of
+its DMA slices, not part of the function, so the map may keep its 84
+channels. On a CUDA tensor the wrapper launches the hand-written kernel
+(csrc/dma_gather.cu, one launch for all views) or raises; on a CPU tensor
+it runs `dma_gather_plain`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .feat_sample import bilinear_coords, gather_corners
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lerp(a, w, b):
+    """a + w * (b - a) with K3's rounding in a's dtype (see the module
+    docstring)."""
+    d = b - a
+    if a.dtype == torch.float32:
+        return (a.double() + w.double() * d.double()).float()
+    return a + w * d
+
+
+def dma_gather_plain(feats, xy):
+    """The plain PyTorch version of the kernel.
+
+    feats: (V, H, W, C) f32 or bf16; xy: (V, N, 2) f32 NDC. Returns
+    (V, N, C) in feats.dtype.
+    """
+    V, H, W, C = feats.shape
+    x0, y0, wx, wy = bilinear_coords(xy, H, W)
+    wx = wx.to(feats.dtype)[..., None]
+    wy = wy.to(feats.dtype)[..., None]
+    p00, p01, p10, p11 = gather_corners(feats, x0, y0)
+    top = _lerp(p00, wx, p01)
+    bot = _lerp(p10, wx, p11)
+    return _lerp(top, wy, bot)
+
+
+def _check(feats, xy):
+    if feats.dim() != 4 or xy.dim() != 3 or xy.shape[-1] != 2:
+        raise ValueError(
+            f"expected maps (V, H, W, C) and points (V, N, 2), got "
+            f"{tuple(feats.shape)} and {tuple(xy.shape)}"
+        )
+    if xy.shape[0] != feats.shape[0]:
+        raise ValueError(f"{feats.shape[0]} maps but {xy.shape[0]} point sets")
+    if feats.shape[1] < 2 or feats.shape[2] < 2:
+        raise ValueError(f"maps must be at least 2x2, got {tuple(feats.shape)}")
+    if feats.dtype not in _DTYPE_CODE:
+        raise TypeError(f"map dtype must be float32 or bfloat16, got {feats.dtype}")
+    if xy.dtype != torch.float32:
+        raise TypeError(f"points must be float32, got {xy.dtype}")
+    if feats.device != xy.device:
+        raise ValueError(f"maps on {feats.device} but points on {xy.device}")
+
+
+@functools.cache
+def _kernel():
+    from ._build import load
+
+    fn = load("dma_gather").kpn_dma_gather
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(feats, xy):
+    if not (feats.is_contiguous() and xy.is_contiguous()):
+        raise ValueError("the kernel takes contiguous maps and points")
+    fn = _kernel()
+    V, H, W, C = feats.shape
+    N = xy.shape[1]
+    out = torch.empty((V, N, C), dtype=feats.dtype, device=feats.device)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        err = fn(feats.data_ptr(), xy.data_ptr(), out.data_ptr(),
+                 V, N, H, W, C, _DTYPE_CODE[feats.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"dma_gather kernel launch failed: CUDA error {err}")
+    multiview_bilinear_sample_dma.launches += 1
+    return out
+
+
+def multiview_bilinear_sample_dma(feats, xy):
+    """K3's bilinear lookup of V maps at per-view NDC points.
+
+    feats: (V, H, W, C) f32 or bf16; xy: (V, N, 2) f32. Returns (V, N, C)
+    in feats.dtype. CUDA tensors go to the kernel (counted in
+    `multiview_bilinear_sample_dma.launches`), CPU tensors to the plain
+    version.
+    """
+    _check(feats, xy)
+    if feats.is_cuda:
+        return _launch(feats, xy)
+    if feats.device.type != "cpu":
+        raise ValueError(f"no kernel for device {feats.device}")
+    return dma_gather_plain(feats, xy)
+
+
+multiview_bilinear_sample_dma.launches = 0

@@ -1,6 +1,6 @@
 """Exact empty-ray culling for full-image inference.
 
-Port of `keypointnerf_tpu/render/empty_cull.py`, per-map (non-lerp)
+Port of `keypointnerf_tpu/render/empty_cull.py`, per-sample (non-lerp)
 branch. A ray whose every sample point fails the all-view foreground test
 (fg > 0.1 in every source view) composites to exactly zero, because the
 model multiplies the radiance by that validity. This module bounds, per
@@ -13,9 +13,12 @@ Why the bound is conservative:
    uniform-importance expressions, including the fine depths an all-zero
    ray gets from the +1e-5 importance floor. A culled ray's predicted
    points are its real points.
-2. Each view's mask is max-pooled into (cell+1)-wide windows strided by
-   `cell` pixels, so the cell holding a clamped map coordinate covers all
-   four bilinear corners: bilinear(p) <= max(corners) <= cell max.
+2. The bound is built from the mask the model samples: `src_masks`, or
+   with the fused map its mask channel on its own (possibly half-res,
+   fractional-valued) grid. Each view's mask is max-pooled into
+   (cell+1)-wide windows strided by `cell` map pixels, so the cell holding
+   a clamped map coordinate covers all four bilinear corners:
+   bilinear(p) <= max(corners) <= cell max.
 3. The cell values are rounded to bf16, as the JAX package's one-hot
    lookup does, so the scores equal JAX's; that rounding and the model's
    bf16 blend stay within the 0.01 margin below the 0.1 validity test.
@@ -62,17 +65,28 @@ def _cell_lookup(cmax, cy, cx):
     return flat[(view * hc + cy) * wc + cx]
 
 
-def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096):
+def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096,
+                     feats=None):
     """Per-ray conservative foreground scores.
 
     cfg: KeypointNeRFConfig (n_coarse / n_fine / znear / zfar); vb:
-    ViewBatch; origin (3,); dirs (R, 3); near, far (R, 1). Returns (R,) f32;
+    ViewBatch; origin (3,); dirs (R, 3); near, far (R, 1); `feats` the dict
+    from `KeypointNeRF.encode`, required with `cfg.fused_feature_map` (the
+    bound is then the fused map's mask channel). Returns (R,) f32;
     score <= EMPTY_SCORE_THRESHOLD => the ray's output is exactly zero.
     Rays are scored `score_chunk` at a time to bound memory; the scores do
     not depend on the chunking.
     """
-    H, W = vb.src_masks.shape[1:3]
-    mask_map = vb.src_masks
+    H, W = vb.src_masks.shape[1:3]          # the NDC convention of the projection
+    if feats is not None and "fused" in feats:
+        base = cfg.geo_out_ch + cfg.geo_out_ch_hd + cfg.tex_out_ch
+        mask_map = feats["fused"][..., base + 3 : base + 4]
+    elif cfg.fused_feature_map:
+        raise ValueError(
+            "empty_ray_scores: cfg.fused_feature_map requires feats= (the bound "
+            "must be built from the fused map's mask channel)")
+    else:
+        mask_map = vb.src_masks
     V, Hm, Wm = mask_map.shape[:3]
     cmax = conservative_mask_cells(mask_map.float(), cell)
     krt = compose_krt(vb.src_K, vb.src_R, vb.src_t)
@@ -101,11 +115,13 @@ def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096)
     return torch.cat(scores)
 
 
-def suggest_cull_budget(cfg, vb, cameras, height, width, margin=1.3, quantum=1 / 64):
+def suggest_cull_budget(cfg, vb, cameras, height, width, feats=None, margin=1.3,
+                        quantum=1 / 64):
     """A scene's safe cull budget from its hull fraction.
 
     Scores every camera in `cameras` ((K, R, t) tensors) at height x width
-    and returns (budget, max_hull_fraction) with
+    (`feats` as for `empty_ray_scores`, required with the fused map) and
+    returns (budget, max_hull_fraction) with
     budget = ceil(max_fraction * margin / quantum) * quantum in (0, 1].
     """
     from ..geometry.cameras import camera_rays, pixel_grid
@@ -114,7 +130,7 @@ def suggest_cull_budget(cfg, vb, cameras, height, width, margin=1.3, quantum=1 /
     worst = 0.0
     for K, R, t in cameras:
         origin, dirs, near, far = camera_rays(pix, K, R, t, cfg.znear, cfg.zfar)
-        scores = empty_ray_scores(cfg, vb, origin, dirs, near, far)
+        scores = empty_ray_scores(cfg, vb, origin, dirs, near, far, feats=feats)
         worst = max(worst, float((scores > EMPTY_SCORE_THRESHOLD).float().mean()))
     budget = min(1.0, math.ceil(worst * margin / quantum) * quantum)
     return max(budget, quantum), worst

@@ -55,6 +55,11 @@ def render_rays_chunked(
     # Exact empty-ray cull (render/empty_cull.py), global across chunks.
     # Exactness requires #(score > threshold) <= budget: checked at run
     # time and reported as `cull_overflow` (zero everywhere iff it held).
+    if cfg.use_pallas_composite and fine:
+        raise ValueError(
+            "cull_empty_rays_ratio requires the plain importance path: K6's "
+            "fine-depth placement for zero rays (use_pallas_composite) is not "
+            "what empty_ray_scores replicates")
     if cfg.disable_fg_mask:
         raise ValueError(
             "cull_empty_rays_ratio requires the foreground validity test: "
@@ -63,7 +68,7 @@ def render_rays_chunked(
         )
     from .empty_cull import EMPTY_SCORE_THRESHOLD, empty_ray_scores
 
-    scores = empty_ray_scores(cfg, vb, origin, dirs, near, far)
+    scores = empty_ray_scores(cfg, vb, origin, dirs, near, far, feats=feats)
     k = max(1, min(n, -int(-n * ratio // 1)))
     overflow = torch.clamp((scores > EMPTY_SCORE_THRESHOLD).sum() - k, min=0).float()
     # which of several equal scores is marched differs from jax.lax.top_k;

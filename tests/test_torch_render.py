@@ -268,8 +268,7 @@ def test_union_path_and_cull_guards(world):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(fused_feature_map=True), dict(gather_lerp=True), dict(use_dma_gather=True),
-    dict(use_pallas_composite=True),
+    dict(gather_lerp=True),
     dict(coarse_topk_ratio=0.5), dict(fine_topk_ratio=0.75), dict(separate_cf=True),
     dict(pool_mode="attention_v0"),
 ])
@@ -336,6 +335,7 @@ def test_port_imports_no_jax():
         "import keypointnerf_torch.ops, keypointnerf_torch.models, keypointnerf_torch.render\n"
         "import keypointnerf_torch.utils, keypointnerf_torch.ops._build\n"
         "import keypointnerf_torch.training, keypointnerf_torch.models.vgg\n"
+        "import keypointnerf_torch.ops.dma_gather, keypointnerf_torch.ops.composite_importance\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'keypointnerf_tpu')]\n"
         "assert not bad, bad\n"
