@@ -17,7 +17,9 @@ Phases (any failure exits nonzero):
      step's two queries; and an odd or ragged shape), with its time,
      the plain version's time, one PyTorch library call's time where there
      is one (for K4 / K5 the module path they replace instead) and the
-     bound; the K4 / K5 autograd.Function's gradients (kernel forward,
+     bound (for K4 / K5 the largest of bytes, products and f32 work, the
+     accurate softplus100 / expf / sinf / cosf at the cost a probe kernel
+     measures, their SASS and MUFU counts printed beside it); the K4 / K5 autograd.Function's gradients (kernel forward,
      recompute backward) against autograd through the plain version; and
      both forms of `models/mlp.py:dot_f32` in bf16 (inference: torch.mm
      with out_dtype=float32; autograd: the f32 product of bf16-rounded
@@ -76,6 +78,11 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+# f32 instructions a second (132 SMs x 128 lanes at 1.98 GHz: the f32 rate
+# with an FMA counted once) and the special-function (MUFU) rate (16 a
+# cycle an SM)
+F32_ISSUE_PER_S = F32_FLOPS_PER_S / 2
+MUFU_PER_S = 132 * 16 * 1.98e9
 ZJU_CONFIG = Path(__file__).resolve().parent / "configs" / "zju.json"
 
 
@@ -475,6 +482,171 @@ def geo_mlp_inputs(dev, N, seed, V=3, K=24):
                 f1=f32(rs.normal(size=(V, N, 8))), mask=f32(mask), weight=f32(weight))
 
 
+# A probe of what K4 / K5's accurate f32 functions cost as nvcc compiles
+# them with the kernels' flags: each function applied 64 times to 4
+# independent values a thread (each time followed by one FMA that keeps its
+# argument in [-1, 1]), at full occupancy. A baseline with the FMA alone is
+# subtracted.
+PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__device__ __forceinline__ float softplus100(float x) {
+  const float y = __fmul_rn(100.0f, x);
+  return __fmul_rn(__fadd_rn(fmaxf(y, 0.0f), log1pf(expf(-fabsf(y)))), 0.01f);
+}
+template <int F> __device__ __forceinline__ float fn(float x) {
+  if constexpr (F == 1) return softplus100(x);
+  else if constexpr (F == 2) return expf(x);
+  else if constexpr (F == 3) return sinf(x);
+  else if constexpr (F == 4) return cosf(x);
+  else return x;
+}
+template <int F> __global__ void __launch_bounds__(256) probe(const float* x, float* y, int reps) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = x[4 * i + j];
+  for (int r = 0; r < reps; ++r) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[j] = fmaf(fn<F>(a[j]), 0.5f, -0.25f);
+  }
+  y[i] = a[0] + a[1] + a[2] + a[3];
+}
+// one evaluation each, for the instruction counts
+template <int F> __global__ void once(const float* x, float* y) { y[threadIdx.x] = fn<F>(x[threadIdx.x]); }
+template __global__ void once<0>(const float*, float*);
+template __global__ void once<1>(const float*, float*);
+template __global__ void once<2>(const float*, float*);
+template __global__ void once<3>(const float*, float*);
+template __global__ void once<4>(const float*, float*);
+extern "C" int probe_launch(int f, const float* x, float* y, int threads, int reps, void* s) {
+  cudaStream_t st = static_cast<cudaStream_t>(s);
+  const int blocks = threads / 256;
+  switch (f) {
+    case 0: probe<0><<<blocks, 256, 0, st>>>(x, y, reps); break;
+    case 1: probe<1><<<blocks, 256, 0, st>>>(x, y, reps); break;
+    case 2: probe<2><<<blocks, 256, 0, st>>>(x, y, reps); break;
+    case 3: probe<3><<<blocks, 256, 0, st>>>(x, y, reps); break;
+    default: probe<4><<<blocks, 256, 0, st>>>(x, y, reps); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+PROBE_FUNCS = ("softplus100", "expf", "sinf", "cosf")
+
+
+def transcendental_costs(dev) -> dict:
+    """{name: (seconds per evaluation at full occupancy, SASS instructions,
+    MUFU instructions)} of softplus100, expf, sinf, cosf; the SASS counts
+    are those of one evaluation, static (a slow path included) and net of a
+    kernel that copies its argument."""
+    import ctypes
+    import hashlib
+    import re
+
+    from keypointnerf_torch.ops._build import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha1(PROBE_SRC.encode()).hexdigest()[:12]
+    src, lib_path = BUILD_DIR / f"probe-{digest}.cu", BUILD_DIR / f"libprobe-{digest}.so"
+    if not lib_path.exists():
+        src.write_text(PROBE_SRC)
+        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True)
+    sass = {}
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    if cuobjdump.exists():
+        text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], check=True,
+                              capture_output=True, text=True).stdout
+        for part in text.split("Function : ")[1:]:
+            m = re.match(r"_Z4onceILi(\d)EEvPKfPf", part)
+            if m:
+                ins = re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);", part)
+                ins = [i for i in ins if not i.strip().startswith("NOP")]
+                sass[int(m.group(1))] = (len(ins), sum("MUFU" in i for i in ins))
+    lib = ctypes.CDLL(str(lib_path))
+    lib.probe_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_void_p]
+    threads, reps = 132 * 2048 * 4, 64
+    x = torch.rand(4 * threads, device=dev) * 2.0 - 1.0
+    y = torch.empty(threads, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(f):
+        if lib.probe_launch(f, x.data_ptr(), y.data_ptr(), threads, reps, stream) != 0:
+            raise SystemExit("the transcendental probe failed to launch")
+
+    evals = 4 * threads * reps
+    base = cuda_ms(lambda: run(0), iters=10)
+    costs = {}
+    for f, name in enumerate(PROBE_FUNCS, start=1):
+        t = (cuda_ms(lambda: run(f), iters=10) - base) * 1e-3 / evals
+        n_sass = n_mufu = None
+        if f in sass and 0 in sass:
+            n_sass, n_mufu = sass[f][0] - sass[0][0], sass[f][1] - sass[0][1]
+        costs[name] = (t, n_sass, n_mufu)
+        print(f"probe {name}: {t:.4e} s per evaluation at full occupancy = "
+              f"{t * F32_ISSUE_PER_S:.1f} f32 issue slots; SASS {n_sass} instructions "
+              f"(static, slow path included; {n_sass and round(n_sass / F32_ISSUE_PER_S * 1e12, 2)} "
+              f"ps at the f32 issue rate), MUFU {n_mufu} ({n_mufu and round(n_mufu / MUFU_PER_S * 1e12, 2)} "
+              f"ps at the MUFU rate)", flush=True)
+    return costs
+
+
+def check_exact_replicas(dev) -> None:
+    """The bf16 K4 / K5 kernel computes softplus100's log1pf and the
+    encoding's sinf / cosf with branch-free copies of the library's code:
+    each held against the library function bit for bit, log1pf on every
+    float in [0, 1], sinf and cosf on every float of magnitude below their
+    fast-reduction limit."""
+    import ctypes
+
+    from keypointnerf_torch.ops._build import load
+
+    lib = load("fused_geo_mlp")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for fn, what in ((lib.kpn_log1pf_check, "log1pf on [0, 1]"),
+                     (lib.kpn_trig_check, "sinf and cosf on |x| < 105615")):
+        count = torch.zeros(1, dtype=torch.int64, device=dev)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        if fn(count.data_ptr(), stream) != 0:
+            raise SystemExit(f"the check of {what} failed to launch")
+        bad = int(count.item())
+        print(f"branch-free copy of {what}: {bad} results differ from the library's "
+              f"(bound 0) {'ok' if bad == 0 else 'FAIL'}", flush=True)
+        if bad:
+            raise SystemExit(f"the kernel's copy of {what} is not the library's")
+
+
+def geo_mlp_bound(N, V, K, with_enc, costs, n_bytes) -> dict:
+    """The least time of one K4 / K5 call at the zju widths: the largest of
+    its bytes at the HBM rate, its products at the bf16 tensor rate, and
+    its f32 work (each accurate function at its probed cost, the plain
+    operations at the f32 issue rate)."""
+    d = dict(zip(("dsp", "h1", "h2", "h3", "dl"), GEO_DIMS1))
+    g0, g1, g2, do = GEO_DIMS2
+    c0, c1 = GEO_SKIP
+    per_vp = (d["dsp"] + c0) * d["h1"] + d["h1"] * d["h2"] + (d["h2"] + c1) * d["h3"] \
+        + d["h3"] * d["dl"]
+    mm_flops = 2 * N * (V * per_vp + g0 * g1 + g1 * g2 + g2 * do)
+    n_soft = N * (V * (d["h1"] + d["h2"] + d["h3"]) + g1 + g2)
+    triples = V * N * K if with_enc else 0
+    # plain f32 operations: a bias add per activation and output; per
+    # (view, point, keypoint) of the encoding ~20 (differences, squares,
+    # the division, the products by the decay and the frequencies); the
+    # pool ~8 per (view, point, latent channel)
+    plain = n_soft + N * (V * d["dl"] + do) + 20 * triples + 8 * V * N * d["dl"]
+    t = {
+        "bytes": n_bytes / HBM_BYTES_PER_S,
+        "products": mm_flops / BF16_FLOPS_PER_S,
+        "f32": (n_soft * costs["softplus100"][0]
+                + triples * (costs["expf"][0] + 3 * costs["sinf"][0] + 3 * costs["cosf"][0])
+                + plain / F32_ISSUE_PER_S),
+    }
+    by = max(t, key=t.get)
+    return dict(bound_ms=t[by] * 1e3, bound_by="bytes" if by == "bytes" else "operations",
+                binds=by, t_ms={k: v * 1e3 for k, v in t.items()}, mm_flops=mm_flops,
+                n_soft=n_soft, triples=triples, n_bytes=n_bytes)
+
+
 def check_fused_geo_mlp(dev) -> dict:
     """K4 and K5 against their plain versions; returns their kernels-line
     entries. Tolerances, as a share of each output's largest entry. With
@@ -495,7 +667,9 @@ def check_fused_geo_mlp(dev) -> dict:
         ws = [w.clone() for w in fg.fold_weight_norm(mlp)]
     V, K, L = 3, 24, 3
     names = ("out", "valid", "latent_view", "latent_fused")
-    entries = {}
+    entries, train_ms, train_bound = {}, {}, {}
+    costs = transcendental_costs(dev)
+    check_exact_replicas(dev)
     bf16_case, f32_case = (torch.bfloat16, 5e-3, 1e-6), (torch.float32, 5e-6, 2e-7)
     # the render query's shape (2048 rays x 64 samples) and a ragged N, both
     # kernels and both product types; then the shapes the zju step gives K5
@@ -539,6 +713,18 @@ def check_fused_geo_mlp(dev) -> dict:
                 if N == 2048 * 64 and dt == torch.bfloat16:
                     entries[kname] = dict(lead=lead, rest=rest, max_abs_err=abs_err,
                                           apply=apply, plain=plain)
+                if train_shape:
+                    # the training step's query shapes: the kernel's time
+                    with torch.no_grad():
+                        train_ms[N] = cuda_ms(lambda: apply(ws, *lead, *rest, compute_dtype=dt),
+                                              iters=10)
+                    nb = 4 * (sum(t.numel() for t in (*lead, *rest)) + sum(w.numel() for w in ws)
+                              + N * (V * GEO_DIMS1[4] + 2 * GEO_DIMS1[4] + GEO_DIMS2[3] + 1))
+                    train_bound[N] = geo_mlp_bound(N, V, K, True, costs, nb)
+                    b = train_bound[N]
+                    print(f"{kname} timing (bf16 products, V={V}, N={N}, the training step's "
+                          f"query): kernel {train_ms[N]:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                          f"({b['binds']})", flush=True)
 
     # gradients: kernel forward and recompute backward against autograd
     # straight through the plain version, f32, a loss that is not linear
@@ -586,16 +772,6 @@ def check_fused_geo_mlp(dev) -> dict:
                        x["weight"].to(bf))
 
     sp_big = entries["fused_geo_mlp"]["lead"][0]
-    d = dict(zip(("dsp", "h1", "h2", "h3", "dl"), GEO_DIMS1))
-    g0, g1, g2, do = GEO_DIMS2
-    c0, c1 = GEO_SKIP
-    per_vp = (d["dsp"] + c0) * d["h1"] + d["h1"] * d["h2"] + (d["h2"] + c1) * d["h3"] \
-        + d["h3"] * d["dl"]
-    per_p = g0 * g1 + g1 * g2 + g2 * do
-    mm_flops = 2 * N * (V * per_vp + per_p)
-    n_soft = N * (V * (d["h1"] + d["h2"] + d["h3"]) + g1 + g2)
-    weight_bytes = 4 * sum(w.numel() for w in ws)
-    out_bytes = 4 * N * (V * d["dl"] + g0 + do + 1)
     result = {}
     for kname, with_enc in (("fused_geo_mlp", False), ("sp_fused_geo_mlp", True)):
         e = entries[kname]
@@ -608,38 +784,38 @@ def check_fused_geo_mlp(dev) -> dict:
             f32_ms = cuda_ms(lambda: apply(ws, *lead, *rest, compute_dtype=torch.float32),
                              iters=5, warmup=2)
             if with_enc:
-                # a bf16 call is two launches: the weights' repack to padded
-                # bf16 (every call: they change each training step) and the
-                # kernel; the profile shows each one's device time
+                # a bf16 call is two launches: the weights' repack into the
+                # layout wgmma reads (every call: they change each training
+                # step) and the kernel; the profile shows each one's time
                 print("one sp_fused_geo_mlp call, bf16 products:", flush=True)
                 profile_kernels(lambda: apply(ws, *lead, *rest, compute_dtype=bf), 4)
         in_bytes = 4 * (sum(t.numel() for t in lead) + sum(t.numel() for t in rest))
-        n_bytes = in_bytes + weight_bytes + out_bytes
-        # f32 work outside the products: per softplus100 ~7 (two of them
-        # transcendental); per (view, point, keypoint) of the encoding ~26
-        # (1 exp, 3 sin, 3 cos); the pool ~8 per (view, point, channel)
-        n_trans = 2 * n_soft + (7 * V * N * K if with_enc else 0)
-        f32_ops = 7 * n_soft + (26 * V * N * K if with_enc else 0) + 8 * V * N * d["dl"]
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = (mm_flops / BF16_FLOPS_PER_S + f32_ops / F32_FLOPS_PER_S) * 1e3
+        out_bytes = 4 * N * (V * GEO_DIMS1[4] + 2 * GEO_DIMS1[4] + GEO_DIMS2[3] + 1)
+        n_bytes = in_bytes + 4 * sum(w.numel() for w in ws) + out_bytes
+        b = geo_mlp_bound(N, V, K, with_enc, costs, n_bytes)
         line = 164 if kname == "fused_geo_mlp" else 374
         result[kname] = {
             "name": kname, "route": "cuda",
             "source": "keypointnerf_torch/csrc/fused_geo_mlp.cu",
             "replaces": f"keypointnerf_tpu/ops/pallas/fused_geo_mlp.py:{line}",
             "max_abs_err": e["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None, "module_path_ms": module_ms, "f32_ms": f32_ms,
         }
+        if with_enc:
+            result[kname]["train_ms"] = {str(n): t for n, t in train_ms.items()}
+            result[kname]["train_bound_ms"] = {str(n): tb["bound_ms"]
+                                               for n, tb in train_bound.items()}
+        t = b["t_ms"]
         print(f"{kname} timing (bf16 products, V={V}, N={N}, K={K}): kernel {ms:.4f} ms "
               f"(f32 products {f32_ms:.4f} ms), plain {plain_ms:.4f} ms, module path "
               f"({'spatial_encode + ' if with_enc else ''}GeoFusionMLP.forward, bf16, no_grad) "
-              f"{module_ms:.4f} ms, bound {result[kname]['bound_ms']:.4f} ms "
-              f"({result[kname]['bound_by']}: {n_bytes} bytes = {t_bytes:.4f} ms; "
-              f"{mm_flops} product flops at the bf16 tensor rate + {f32_ops} f32 operations "
-              f"= {t_ops:.4f} ms; {n_trans} transcendentals); no single PyTorch call "
-              f"computes this function (library_ms null)", flush=True)
+              f"{module_ms:.4f} ms, bound {b['bound_ms']:.4f} ms, bound by {b['binds']} "
+              f"(bytes {n_bytes} = {t['bytes']:.4f} ms; {b['mm_flops']} product flops at the "
+              f"bf16 tensor rate = {t['products']:.4f} ms; f32 work = {t['f32']:.4f} ms: "
+              f"{b['n_soft']} softplus100 and {b['triples']} encodings of 1 expf, 3 sinf, "
+              f"3 cosf at their probed costs, plus plain operations at the f32 issue rate); "
+              f"no single PyTorch call computes this function (library_ms null)", flush=True)
     return result
 
 

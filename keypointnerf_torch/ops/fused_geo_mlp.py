@@ -17,9 +17,14 @@ whose autograd form rounds each operand gradient once, as JAX's does).
 
 On CUDA tensors the wrappers launch the hand-written kernel
 (csrc/fused_geo_mlp.cu; counted in `.launches`) or raise; on CPU tensors
-they run the plain version. Either way the call is a
-`torch.autograd.Function` that saves only its inputs: its backward re-runs
-the plain stack under autograd and differentiates that. This recompute is
+they run the plain version. With bf16 products the kernel keeps every
+layer's weights in shared memory and is built for the zju layer widths:
+`_check_kernel` raises, before any launch, on other widths, on more than
+four views, on more than 256 layer-0 inputs or 16 f1 channels, on K5
+keypoints or levels other than the zju recipe's 24 and 3, and on weights
+that do not fit. Either way the call is a `torch.autograd.Function` that
+saves only its inputs: its backward re-runs the plain stack under autograd
+and differentiates that. This recompute is
 the ported semantics of the JAX kernels' `custom_vjp` (whose backward is
 the XLA recompute of the same stack), not a fallback; the forward of a
 training step on the card always goes through the kernel.
@@ -150,19 +155,79 @@ def _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
     return c0, c1, h1, h2, h3, dl, g1, g2, dout
 
 
-def _pad16(n: int) -> int:
-    return (n + 15) // 16 * 16
+# The bf16 kernel: the layer out widths it is compiled for (the zju
+# architecture), the most views its pool unrolls, the layer-0 inputs whose A
+# fragments it holds at once, K5's keypoints and levels (its encoding is
+# unrolled) and the shared memory one block may use (csrc/fused_geo_mlp.cu
+# `kN`, `kMaxViews`, `kMaxKb0`, `kK5Keypoints`, `kK5Levels`).
+KERNEL_WIDTHS = (128, 128, 120, 64, 64, 64)
+KERNEL_MAX_VIEWS = 4
+KERNEL_MAX_DOUT = 8
+KERNEL_MAX_LAYER0_INPUTS = 256
+KERNEL_SP_ARGS = (24, 3)          # K5: keypoints, levels
+SMEM_BYTES = 232_448
+
+
+def _pad(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def packed_shapes(widths, dsp):
+    """The bf16 kernel's packed layers, (rows, cols) each: K padded to 16,
+    N to 8."""
+    c0, c1, h1, h2, h3, dl, g1, g2, dout = widths
+    ins = (dsp + c0, h1, h2 + c1, h3, 2 * dl, g1, g2)
+    outs = (h1, h2, h3, dl, g1, g2, dout)
+    return [(_pad(i, 16), _pad(o, 8)) for i, o in zip(ins, outs)]
+
+
+def smem_bytes(shapes, V, K, sp_args) -> int:
+    """Shared memory of one block of the bf16 kernel: the packed bf16
+    weights, the f32 biases, every view's keypoints (K5), the mbarrier."""
+    weights = 2 * sum(k * n for k, n in shapes)
+    extra = 4 * (sum(n for _, n in shapes) + (V * K * 3 if sp_args is not None else 0))
+    return _pad(weights + extra, 8) + 8
+
+
+def _check_kernel(V, K, dsp, widths, compute_dtype, sp_args):
+    """Raise on what the CUDA kernel does not take, before any launch;
+    returns the bf16 kernel's packed layer shapes (None for f32 products)."""
+    if compute_dtype != torch.bfloat16:
+        return None
+    c0, c1, h1, h2, h3, dl, g1, g2, dout = widths
+    if (h1, h2, h3, dl, g1, g2) != KERNEL_WIDTHS or not 1 <= dout <= KERNEL_MAX_DOUT:
+        raise ValueError(f"the bf16 kernel is built for layer widths {KERNEL_WIDTHS} and "
+                         f"1..{KERNEL_MAX_DOUT} outputs, got {(h1, h2, h3, dl, g1, g2)} and {dout}")
+    if V > KERNEL_MAX_VIEWS:
+        raise ValueError(f"the bf16 kernel takes at most {KERNEL_MAX_VIEWS} views, got {V}")
+    shapes = packed_shapes(widths, dsp)
+    need = smem_bytes(shapes, V, K, sp_args)
+    if need > SMEM_BYTES:
+        raise ValueError(f"the bf16 kernel's weights do not fit in shared memory: {need} "
+                         f"bytes of {SMEM_BYTES}")
+    if c1 > 16:
+        raise ValueError(f"the bf16 kernel takes at most 16 f1 channels, got {c1}")
+    if shapes[0][0] > KERNEL_MAX_LAYER0_INPUTS:
+        raise ValueError(f"the bf16 kernel takes at most {KERNEL_MAX_LAYER0_INPUTS} layer-0 "
+                         f"inputs, got {dsp + c0}")
+    if sp_args is not None and (K, sp_args[0]) != KERNEL_SP_ARGS:
+        raise ValueError(f"the bf16 K5 kernel is built for (keypoints, levels) = "
+                         f"{KERNEL_SP_ARGS}, got {(K, sp_args[0])}")
+    return shapes
 
 
 def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, widths):
     """One launch of the CUDA kernel (K5 when `sp_args`, else K4)."""
+    V, N = lead[0].shape[:2]
+    K = lead[1].shape[1] if sp_args is not None else 0
+    dsp = (1 + 2 * sp_args[0]) * K if sp_args is not None else lead[0].shape[-1]
+    shapes = _check_kernel(V, K, dsp, widths, compute_dtype, sp_args)
     tensors = (*lead, f0, f1, mask, weight, *ws)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
     from ._build import load
 
     lib = load("fused_geo_mlp")
-    V, N = lead[0].shape[:2]
     c0, c1, h1, h2, h3, dl, g1, g2, dout = widths
     dev = f0.device
     out = torch.empty((N, dout), dtype=torch.float32, device=dev)
@@ -170,10 +235,9 @@ def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, wid
     lv = torch.empty((V, N, dl), dtype=torch.float32, device=dev)
     lf = torch.empty((N, 2 * dl), dtype=torch.float32, device=dev)
     packed = None
-    if compute_dtype == torch.bfloat16:
-        # scratch for the kernel's own bf16 rounding of the weights
-        n_packed = sum(_pad16(w.shape[0]) * _pad16(w.shape[1]) for w in ws[0::2])
-        packed = torch.empty(n_packed, dtype=torch.bfloat16, device=dev)
+    if shapes is not None:
+        # scratch for the kernel's own bf16 rounding and packing of the weights
+        packed = torch.empty(sum(k * n for k, n in shapes), dtype=torch.bfloat16, device=dev)
     ptrs = [t.data_ptr() for t in tensors]
     ptrs += [packed.data_ptr() if packed is not None else None]
     ptrs += [t.data_ptr() for t in (out, valid, lv, lf)]

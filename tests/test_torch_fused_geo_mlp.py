@@ -267,6 +267,13 @@ def test_all_masked_point(case, kind):
     assert float(out[DEAD].detach().abs().max()) > 0.0
 
 
+def _with_w0_rows(case, dsp):
+    """The folded weights with a zero W0 for a `dsp`-wide encoding."""
+    ws = list(tfused.fold_weight_norm(case["tm"]))
+    ws[0] = torch.zeros((dsp + 64, DIMS1[1]))
+    return ws
+
+
 def test_wrappers_refuse_bad_inputs(case):
     t = case["t"]
     with pytest.raises(TypeError, match="float32"):
@@ -294,18 +301,65 @@ def test_wrappers_refuse_bad_inputs(case):
         tfused.geo_mlp_apply(ws, meta["sp"], meta["f0"], meta["f1"], meta["mask"],
                              meta["weight"])
 
+    # what only the bf16 kernel refuses, raised on its route before any
+    # build or launch (so CPU tensors reach the check): more views than its
+    # pool keeps, weights over its shared memory, other layer widths
+    def kernel_route(kind, ws=None, **over):
+        x = dict(t, **over)
+        ws = tfused.fold_weight_norm(case["tm"]) if ws is None else ws
+        lead = (x["sp"],) if kind == "k4" else (x["pts_cam"], x["kpt_cam"])
+        sp_args = None if kind == "k4" else (3, 0.1, 1.0)
+        rest = (x["f0"], x["f1"], x["mask"], x["weight"])
+        widths = tfused._check(lead, *rest, ws, torch.bfloat16, sp_args)
+        before = (tfused.geo_mlp_apply.launches, tfused.sp_geo_mlp_apply.launches)
+        try:
+            tfused._launch(tfused.geo_mlp_apply if kind == "k4" else tfused.sp_geo_mlp_apply,
+                           lead, *rest, ws, torch.bfloat16, sp_args, widths)
+        finally:
+            assert (tfused.geo_mlp_apply.launches, tfused.sp_geo_mlp_apply.launches) == before
+
+    five = {k: torch.cat([v, v[:2]]) for k, v in t.items() if k != "kpt_cam"}
+    five["kpt_cam"] = torch.cat([t["kpt_cam"], t["kpt_cam"][:2]])
+    for kind in ("k4", "k5"):
+        with pytest.raises(ValueError, match="at most 4 views"):
+            kernel_route(kind, **five)
+    wide = torch.zeros((V, N, 400))                   # c0 = 400: W0 needs 145 KB alone
+    ws_wide = list(tfused.fold_weight_norm(case["tm"]))
+    ws_wide[0] = torch.zeros((DIMS1[0] + 400, DIMS1[1]))
+    for kind in ("k4", "k5"):
+        with pytest.raises(ValueError, match="do not fit in shared memory"):
+            kernel_route(kind, ws_wide, f0=wide)
+    ws_narrow = list(tfused.fold_weight_norm(case["tm"]))
+    ws_narrow[-2], ws_narrow[-1] = torch.zeros((64, 9)), torch.zeros(9)
+    with pytest.raises(ValueError, match="built for layer widths"):
+        kernel_route("k5", ws_narrow)
+    # the zju widths fit: 85,376 packed bf16 weights, 173,928 bytes with K5
+    for k_other in (8, 16):
+        with pytest.raises(ValueError, match="built for .keypoints, levels. = .24, 3."):
+            kernel_route("k5", kpt_cam=torch.cat([t["kpt_cam"]] * 2, 1)[:, :k_other],
+                         ws=_with_w0_rows(case, 7 * k_other))
+    with pytest.raises(ValueError, match="at most 256 layer-0 inputs"):
+        kernel_route("k4", _with_w0_rows(case, 200), sp=torch.zeros((V, N, 200)))
+    shapes = tfused._check_kernel(V, K, 168, (64, 8, *DIMS1[1:], *DIMS2[1:]), torch.bfloat16,
+                                  (3, 0.1, 1.0))
+    assert sum(k * n for k, n in shapes) == 85_376
+    assert tfused.smem_bytes(shapes, V, K, (3, 0.1, 1.0)) == 173_928 <= tfused.SMEM_BYTES
+
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("views,n", [(3, N), (2, N), (3, 131), (1, 64)])
 @pytest.mark.parametrize("kind", ["k4", "k5"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(case, kind, dtype):
-    """The CUDA kernel against its plain version on the card (sum order:
-    1e-4 of each output's largest entry in f32; plus the rare bf16 flip of
-    an activation in bf16: 1%)."""
+def test_kernel_matches_plain_on_card(case, kind, dtype, views, n):
+    """The CUDA kernel against its plain version on the card, at the zju
+    widths, for V = 1, 2, 3 and N a multiple of the bf16 kernel's 64-point
+    tile or not (sum order: 1e-4 of each output's largest entry in f32;
+    plus the rare bf16 flip of an activation in bf16: 1%)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
-    t = {k: v.to(dev) for k, v in case["t"].items()}
+    t = {k: v[:views, :n].contiguous().to(dev) if k != "kpt_cam" else v[:views].to(dev)
+         for k, v in case["t"].items()}
     ws = [w.detach().to(dev) for w in tfused.fold_weight_norm(case["tm"])]
     moved = dict(case, t=t)
     before = tfused.geo_mlp_apply.launches + tfused.sp_geo_mlp_apply.launches
