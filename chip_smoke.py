@@ -7,7 +7,9 @@ Phases (any failure exits nonzero):
   1. environment: the card (nvidia-smi name and power limit), torch and
      CUDA versions, TF32 switched off for matmuls and cuDNN convs;
   2. build: nvcc compiles every kernel of keypointnerf_torch/csrc/ (one
-     process per source, all at once) into build/kernels/;
+     process per source, all at once) into build/kernels/, and beside
+     them fused_geo_mlp.cu with -Xptxas -v for K4 / K5's registers and
+     spills;
   3. kernels: each kernel (K2 the tex lookup, K1 the coarse map's
      gradient, K4 / K5 the fused geometry MLP without / with the in-kernel
      spatial encoding, K3 the fused map's patch-gather lookup, K6 the fused
@@ -17,10 +19,12 @@ Phases (any failure exits nonzero):
      step's two queries; and an odd or ragged shape), with its time,
      the plain version's time, one PyTorch library call's time where there
      is one (for K4 / K5 the module path they replace instead) and the
-     bound (for K4 / K5 the largest of bytes, products and f32 work, the
-     accurate softplus100 / expf / sinf / cosf at the cost a probe kernel
-     measures, their SASS and MUFU counts printed beside it); the K4 / K5 autograd.Function's gradients (kernel forward,
-     recompute backward) against autograd through the plain version; and
+     bound (for K4 / K5 the largest of bytes, products, the f32 issue
+     time of every instruction the kernel's per-value code compiles to
+     (read from its SASS) and the MUFU / conversion pipe's share of it; a
+     probe's times of the library's softplus100 / expf / sinf / cosf
+     printed beside, for comparison); the K4 / K5 autograd.Function's
+     gradients (kernel forward, recompute backward) against autograd through the plain version; and
      both forms of `models/mlp.py:dot_f32` in bf16 (inference: torch.mm
      with out_dtype=float32; autograd: the f32 product of bf16-rounded
      operands) against an f64 product, with their times;
@@ -79,8 +83,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 # f32 instructions a second (132 SMs x 128 lanes at 1.98 GHz: the f32 rate
-# with an FMA counted once) and the special-function (MUFU) rate (16 a
-# cycle an SM)
+# with an FMA counted once) and the rate of the MUFU / conversion pipe (16
+# a cycle an SM: the CUDA programming guide's rate for special functions
+# and for type conversions)
 F32_ISSUE_PER_S = F32_FLOPS_PER_S / 2
 MUFU_PER_S = 132 * 16 * 1.98e9
 ZJU_CONFIG = Path(__file__).resolve().parent / "configs" / "zju.json"
@@ -482,11 +487,12 @@ def geo_mlp_inputs(dev, N, seed, V=3, K=24):
                 f1=f32(rs.normal(size=(V, N, 8))), mask=f32(mask), weight=f32(weight))
 
 
-# A probe of what K4 / K5's accurate f32 functions cost as nvcc compiles
-# them with the kernels' flags: each function applied 64 times to 4
-# independent values a thread (each time followed by one FMA that keeps its
-# argument in [-1, 1]), at full occupancy. A baseline with the FMA alone is
-# subtracted.
+# A probe of what the library's accurate softplus100 (with its log1pf),
+# expf, sinf and cosf cost at full occupancy, for comparison with K4 / K5's
+# bound (which counts the kernel's own branch-free code instead): each
+# function applied 64 times to 4 independent values a thread, each time
+# followed by one FMA that keeps its argument in [-1, 1]; a baseline with
+# the FMA alone is subtracted.
 PROBE_SRC = r"""
 #include <cuda_runtime.h>
 __device__ __forceinline__ float softplus100(float x) {
@@ -511,13 +517,6 @@ template <int F> __global__ void __launch_bounds__(256) probe(const float* x, fl
   }
   y[i] = a[0] + a[1] + a[2] + a[3];
 }
-// one evaluation each, for the instruction counts
-template <int F> __global__ void once(const float* x, float* y) { y[threadIdx.x] = fn<F>(x[threadIdx.x]); }
-template __global__ void once<0>(const float*, float*);
-template __global__ void once<1>(const float*, float*);
-template __global__ void once<2>(const float*, float*);
-template __global__ void once<3>(const float*, float*);
-template __global__ void once<4>(const float*, float*);
 extern "C" int probe_launch(int f, const float* x, float* y, int threads, int reps, void* s) {
   cudaStream_t st = static_cast<cudaStream_t>(s);
   const int blocks = threads / 256;
@@ -534,14 +533,12 @@ extern "C" int probe_launch(int f, const float* x, float* y, int threads, int re
 PROBE_FUNCS = ("softplus100", "expf", "sinf", "cosf")
 
 
-def transcendental_costs(dev) -> dict:
-    """{name: (seconds per evaluation at full occupancy, SASS instructions,
-    MUFU instructions)} of softplus100, expf, sinf, cosf; the SASS counts
-    are those of one evaluation, static (a slow path included) and net of a
-    kernel that copies its argument."""
+def library_function_times(dev) -> None:
+    """Prints the seconds per evaluation, at full occupancy, of the
+    library's softplus100, expf, sinf and cosf, and what they come to in
+    f32 issue slots."""
     import ctypes
     import hashlib
-    import re
 
     from keypointnerf_torch.ops._build import BUILD_DIR, NVCC_FLAGS, _nvcc
 
@@ -551,17 +548,6 @@ def transcendental_costs(dev) -> dict:
     if not lib_path.exists():
         src.write_text(PROBE_SRC)
         subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True)
-    sass = {}
-    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
-    if cuobjdump.exists():
-        text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], check=True,
-                              capture_output=True, text=True).stdout
-        for part in text.split("Function : ")[1:]:
-            m = re.match(r"_Z4onceILi(\d)EEvPKfPf", part)
-            if m:
-                ins = re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);", part)
-                ins = [i for i in ins if not i.strip().startswith("NOP")]
-                sass[int(m.group(1))] = (len(ins), sum("MUFU" in i for i in ins))
     lib = ctypes.CDLL(str(lib_path))
     lib.probe_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_void_p]
@@ -576,19 +562,48 @@ def transcendental_costs(dev) -> dict:
 
     evals = 4 * threads * reps
     base = cuda_ms(lambda: run(0), iters=10)
-    costs = {}
     for f, name in enumerate(PROBE_FUNCS, start=1):
         t = (cuda_ms(lambda: run(f), iters=10) - base) * 1e-3 / evals
-        n_sass = n_mufu = None
-        if f in sass and 0 in sass:
-            n_sass, n_mufu = sass[f][0] - sass[0][0], sass[f][1] - sass[0][1]
-        costs[name] = (t, n_sass, n_mufu)
-        print(f"probe {name}: {t:.4e} s per evaluation at full occupancy = "
-              f"{t * F32_ISSUE_PER_S:.1f} f32 issue slots; SASS {n_sass} instructions "
-              f"(static, slow path included; {n_sass and round(n_sass / F32_ISSUE_PER_S * 1e12, 2)} "
-              f"ps at the f32 issue rate), MUFU {n_mufu} ({n_mufu and round(n_mufu / MUFU_PER_S * 1e12, 2)} "
-              f"ps at the MUFU rate)", flush=True)
-    return costs
+        print(f"probe of the library's {name}: {t:.4e} s per evaluation at full occupancy = "
+              f"{t * F32_ISSUE_PER_S:.1f} f32 issue slots", flush=True)
+
+
+def start_ptxas_report(name):
+    """Starts `nvcc -Xptxas -v` on csrc/<name>.cu (a cubin beside the
+    build, in parallel with it) for its kernels' registers and spills."""
+    from keypointnerf_torch.ops._build import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cmd = [_nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+           str(BUILD_DIR / f"{name}-ptxas.cubin"), str(CSRC / f"{name}.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def print_ptxas_report(proc) -> None:
+    """Prints ptxas's registers and spill bytes of the K4 / K5 kernels and
+    its warnings that wgmma instructions were serialized."""
+    import re
+
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc -Xptxas -v failed:\n{log}")
+    names = {"geo_mlp_wgmmaILb0": "K4 bf16 (geo_mlp_wgmma<false>)",
+             "geo_mlp_wgmmaILb1": "K5 bf16 (geo_mlp_wgmma<true>)",
+             "geo_mlp_f32ILi32ELb0": "K4 f32 (geo_mlp_f32)", "geo_mlp_f32ILi32ELb1": "K5 f32"}
+    fn, spills = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = next((v for k, v in names.items() if k in m.group(1)), None)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"{m.group(1)} / {m.group(2)} bytes of spill stores / loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            print(f"ptxas: {fn}: {m.group(1)} registers, {spills}", flush=True)
+        if "C7512" in line:
+            print("ptxas: " + line.split("ptxas info    : ")[-1][:160], flush=True)
 
 
 def check_exact_replicas(dev) -> None:
@@ -616,11 +631,79 @@ def check_exact_replicas(dev) -> None:
             raise SystemExit(f"the kernel's copy of {what} is not the library's")
 
 
-def geo_mlp_bound(N, V, K, with_enc, costs, n_bytes) -> dict:
+# SASS opcodes that move data or steer control: not counted as the
+# function's operations; and those of the MUFU / conversion pipe
+SASS_NOT_WORK = {"LDC", "ULDC", "LDG", "STG", "LDS", "STS", "EXIT", "BRA", "NOP", "CALL", "RET",
+                 "S2R", "S2UR", "BSSY", "BSYNC"}
+SASS_MUFU_CONV = {"MUFU", "F2F", "F2FP", "F2I", "I2F"}
+
+
+def sass_counts(lib_path, names) -> dict:
+    """{name: (operations, of them MUFU / conversions, branches and calls)}
+    of each named kernel in a built library, from `cuobjdump -sass`: its
+    instructions up to the first unconditional EXIT (the path a call takes
+    when no slow path is needed; a slow path's subroutine lies past the
+    EXIT), less loads, stores and control."""
+    import re
+
+    from keypointnerf_torch.ops._build import _nvcc
+
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    counts = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if name not in names:
+            continue
+        work = mufu_conv = branches = 0
+        for ins in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);", part):
+            tokens = ins.split()
+            predicated = tokens[0].startswith("@")
+            op = tokens[1 if predicated else 0].split(".")[0]
+            if op == "EXIT" and not predicated:
+                break
+            branches += op in ("BRA", "CALL")
+            if op in SASS_NOT_WORK:
+                continue
+            work += 1
+            mufu_conv += op in SASS_MUFU_CONV
+        counts[name] = (work, mufu_conv, branches)
+    missing = set(names) - set(counts)
+    if missing:
+        raise SystemExit(f"no SASS for {sorted(missing)} in {lib_path}")
+    return counts
+
+
+def geo_mlp_op_counts() -> dict:
+    """The instructions of the bf16 K4 / K5 kernel's per-value work as nvcc
+    compiled it: {"act": (operations, MUFU / conversions) per softplus100
+    value of an epilogue (bias, softplus100 with the branch-free log1pf,
+    its half of a bf16 pair), "enc": the same per (view, point, keypoint)
+    of K5's encoding (differences, the division, expf, 3 sin / cos pairs
+    from one argument reduction each, products by the decay, bf16 pairs)},
+    read from the library's `kpn_count_act_pair` and
+    `kpn_count_encoding_pair`, each of which does the work for two."""
+    from keypointnerf_torch.ops._build import library_path, load
+
+    load("fused_geo_mlp")
+    c = sass_counts(library_path("fused_geo_mlp"),
+                    ("kpn_count_act_pair", "kpn_count_encoding_pair"))
+    out = {"act": c["kpn_count_act_pair"], "enc": c["kpn_count_encoding_pair"]}
+    for key, (work, conv, branches) in out.items():
+        print(f"K4 / K5 {key} work on a pair of values, SASS: {work} operations, of them "
+              f"{conv} on the MUFU / conversion pipe; {branches} branches or calls",
+              flush=True)
+    return {k: (w / 2, m / 2) for k, (w, m, _) in out.items()}
+
+
+def geo_mlp_bound(N, V, K, with_enc, ops, n_bytes) -> dict:
     """The least time of one K4 / K5 call at the zju widths: the largest of
-    its bytes at the HBM rate, its products at the bf16 tensor rate, and
-    its f32 work (each accurate function at its probed cost, the plain
-    operations at the f32 issue rate)."""
+    its bytes at the HBM rate, its products at the bf16 tensor rate, its
+    f32 work at the f32 issue rate (every instruction of the code the
+    kernel runs for each value, `geo_mlp_op_counts`, plus the plain
+    operations) and the part of it on the MUFU / conversion pipe at that
+    pipe's rate."""
     d = dict(zip(("dsp", "h1", "h2", "h3", "dl"), GEO_DIMS1))
     g0, g1, g2, do = GEO_DIMS2
     c0, c1 = GEO_SKIP
@@ -629,22 +712,26 @@ def geo_mlp_bound(N, V, K, with_enc, costs, n_bytes) -> dict:
     mm_flops = 2 * N * (V * per_vp + g0 * g1 + g1 * g2 + g2 * do)
     n_soft = N * (V * (d["h1"] + d["h2"] + d["h3"]) + g1 + g2)
     triples = V * N * K if with_enc else 0
-    # plain f32 operations: a bias add per activation and output; per
-    # (view, point, keypoint) of the encoding ~20 (differences, squares,
-    # the division, the products by the decay and the frequencies); the
-    # pool ~8 per (view, point, latent channel)
-    plain = n_soft + N * (V * d["dl"] + do) + 20 * triples + 8 * V * N * d["dl"]
+    # dot operands rounded to bf16 outside the epilogues, two to an
+    # instruction: the layer-0 inputs read (K4: sp and f0; K5: f0), f1 and
+    # the pooled [mean | var]
+    packs = (V * N * ((0 if with_enc else d["dsp"]) + c0 + c1) + 2 * N * d["dl"]) / 2
+    # plain f32 operations: the latent's bias and the pool (mean: a product
+    # and a sum; var: a difference, two products, a sum) per (view, point,
+    # latent channel), the mask sum, the output's bias
+    plain = 7 * V * N * d["dl"] + V * N + N * do
+    issue = n_soft * ops["act"][0] + triples * ops["enc"][0] + packs + plain
+    conv = n_soft * ops["act"][1] + triples * ops["enc"][1] + packs
     t = {
         "bytes": n_bytes / HBM_BYTES_PER_S,
         "products": mm_flops / BF16_FLOPS_PER_S,
-        "f32": (n_soft * costs["softplus100"][0]
-                + triples * (costs["expf"][0] + 3 * costs["sinf"][0] + 3 * costs["cosf"][0])
-                + plain / F32_ISSUE_PER_S),
+        "f32 issue": issue / F32_ISSUE_PER_S,
+        "MUFU / conversions": conv / MUFU_PER_S,
     }
     by = max(t, key=t.get)
     return dict(bound_ms=t[by] * 1e3, bound_by="bytes" if by == "bytes" else "operations",
                 binds=by, t_ms={k: v * 1e3 for k, v in t.items()}, mm_flops=mm_flops,
-                n_soft=n_soft, triples=triples, n_bytes=n_bytes)
+                n_soft=n_soft, triples=triples, n_bytes=n_bytes, issue=issue, conv=conv)
 
 
 def check_fused_geo_mlp(dev) -> dict:
@@ -668,7 +755,8 @@ def check_fused_geo_mlp(dev) -> dict:
     V, K, L = 3, 24, 3
     names = ("out", "valid", "latent_view", "latent_fused")
     entries, train_ms, train_bound = {}, {}, {}
-    costs = transcendental_costs(dev)
+    library_function_times(dev)
+    ops = geo_mlp_op_counts()
     check_exact_replicas(dev)
     bf16_case, f32_case = (torch.bfloat16, 5e-3, 1e-6), (torch.float32, 5e-6, 2e-7)
     # the render query's shape (2048 rays x 64 samples) and a ragged N, both
@@ -720,11 +808,11 @@ def check_fused_geo_mlp(dev) -> dict:
                                               iters=10)
                     nb = 4 * (sum(t.numel() for t in (*lead, *rest)) + sum(w.numel() for w in ws)
                               + N * (V * GEO_DIMS1[4] + 2 * GEO_DIMS1[4] + GEO_DIMS2[3] + 1))
-                    train_bound[N] = geo_mlp_bound(N, V, K, True, costs, nb)
+                    train_bound[N] = geo_mlp_bound(N, V, K, True, ops, nb)
                     b = train_bound[N]
                     print(f"{kname} timing (bf16 products, V={V}, N={N}, the training step's "
                           f"query): kernel {train_ms[N]:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                          f"({b['binds']})", flush=True)
+                          f"({b['binds']}; bytes {b['t_ms']['bytes']:.4f} ms)", flush=True)
 
     # gradients: kernel forward and recompute backward against autograd
     # straight through the plain version, f32, a loss that is not linear
@@ -792,7 +880,7 @@ def check_fused_geo_mlp(dev) -> dict:
         in_bytes = 4 * (sum(t.numel() for t in lead) + sum(t.numel() for t in rest))
         out_bytes = 4 * N * (V * GEO_DIMS1[4] + 2 * GEO_DIMS1[4] + GEO_DIMS2[3] + 1)
         n_bytes = in_bytes + 4 * sum(w.numel() for w in ws) + out_bytes
-        b = geo_mlp_bound(N, V, K, with_enc, costs, n_bytes)
+        b = geo_mlp_bound(N, V, K, with_enc, ops, n_bytes)
         line = 164 if kname == "fused_geo_mlp" else 374
         result[kname] = {
             "name": kname, "route": "cuda",
@@ -812,10 +900,12 @@ def check_fused_geo_mlp(dev) -> dict:
               f"({'spatial_encode + ' if with_enc else ''}GeoFusionMLP.forward, bf16, no_grad) "
               f"{module_ms:.4f} ms, bound {b['bound_ms']:.4f} ms, bound by {b['binds']} "
               f"(bytes {n_bytes} = {t['bytes']:.4f} ms; {b['mm_flops']} product flops at the "
-              f"bf16 tensor rate = {t['products']:.4f} ms; f32 work = {t['f32']:.4f} ms: "
-              f"{b['n_soft']} softplus100 and {b['triples']} encodings of 1 expf, 3 sinf, "
-              f"3 cosf at their probed costs, plus plain operations at the f32 issue rate); "
-              f"no single PyTorch call computes this function (library_ms null)", flush=True)
+              f"bf16 tensor rate = {t['products']:.4f} ms; {b['issue']:.0f} instructions at "
+              f"the f32 issue rate = {t['f32 issue']:.4f} ms: {b['n_soft']} softplus100 at "
+              f"{ops['act'][0]} and {b['triples']} encodings at {ops['enc'][0]}, plus "
+              f"bf16 rounding of inputs and plain operations; {b['conv']:.0f} of them on the "
+              f"MUFU / conversion pipe = {t['MUFU / conversions']:.4f} ms); no single "
+              f"PyTorch call computes this function (library_ms null)", flush=True)
     return result
 
 
@@ -1509,9 +1599,11 @@ def main() -> int:
     from keypointnerf_torch.ops._build import KERNELS, build_all
 
     t0 = time.perf_counter()
+    ptxas = start_ptxas_report("fused_geo_mlp")
     built = build_all(KERNELS)
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in built.items()} })", flush=True)
+    print_ptxas_report(ptxas)
 
     entries, launches = {}, {}
     if "kernels" in todo:

@@ -159,7 +159,11 @@ def _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
 # architecture), the most views its pool unrolls, the layer-0 inputs whose A
 # fragments it holds at once, K5's keypoints and levels (its encoding is
 # unrolled) and the shared memory one block may use (csrc/fused_geo_mlp.cu
-# `kN`, `kMaxViews`, `kMaxKb0`, `kK5Keypoints`, `kK5Levels`).
+# `kN`, `kMaxViews`, `kMaxKb0`, `kK5Keypoints`, `kK5Levels`). These copies
+# let `_check_kernel` refuse with a reason before any build or launch (and
+# on any device); the kernel checks the same limits again, and that its
+# packed layout fits the scratch sized here, and refuses a launch that
+# breaks them (invalid-value).
 KERNEL_WIDTHS = (128, 128, 120, 64, 64, 64)
 KERNEL_MAX_VIEWS = 4
 KERNEL_MAX_DOUT = 8
@@ -234,10 +238,12 @@ def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, wid
     valid = torch.empty((N, 1), dtype=torch.float32, device=dev)
     lv = torch.empty((V, N, dl), dtype=torch.float32, device=dev)
     lf = torch.empty((N, 2 * dl), dtype=torch.float32, device=dev)
-    packed = None
+    packed, n_packed = None, 0
     if shapes is not None:
-        # scratch for the kernel's own bf16 rounding and packing of the weights
-        packed = torch.empty(sum(k * n for k, n in shapes), dtype=torch.bfloat16, device=dev)
+        # scratch for the kernel's own bf16 rounding and packing of the
+        # weights (the kernel checks that its layout fits it)
+        n_packed = sum(k * n for k, n in shapes)
+        packed = torch.empty(n_packed, dtype=torch.bfloat16, device=dev)
     ptrs = [t.data_ptr() for t in tensors]
     ptrs += [packed.data_ptr() if packed is not None else None]
     ptrs += [t.data_ptr() for t in (out, valid, lv, lf)]
@@ -250,7 +256,7 @@ def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, wid
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
                            ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            dims = (V, N, lead[0].shape[-1], *widths)
+            dims = (V, N, lead[0].shape[-1], *widths, n_packed)
             err = fn(c_ptrs, (ctypes.c_int * len(dims))(*dims), code, stream)
         else:
             fn = lib.kpn_sp_geo_mlp
@@ -258,7 +264,7 @@ def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, wid
                            ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             level, sigma, scale = sp_args
-            dims = (V, N, lead[1].shape[1], level, *widths)
+            dims = (V, N, lead[1].shape[1], level, *widths, n_packed)
             err = fn(c_ptrs, (ctypes.c_int * len(dims))(*dims), float(sigma), float(scale),
                      code, stream)
     if err != 0:
