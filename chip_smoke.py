@@ -23,8 +23,14 @@ Phases (any failure exits nonzero):
      time of every instruction the kernel's per-value code compiles to
      (read from its SASS) and the MUFU / conversion pipe's share of it; a
      probe's times of the library's softplus100 / expf / sinf / cosf
-     printed beside, for comparison); the K4 / K5 autograd.Function's
-     gradients (kernel forward, recompute backward) against autograd through the plain version; and
+     printed beside, for comparison); K2 and K3 timed by profiled device
+     time and by CUDA events per call, beside F.grid_sample's
+     grid_sampler_2d kernel timed both ways on the same inputs (K2 at
+     uniform and at ray-coherent points); the K4 / K5 autograd.Function's
+     gradients (kernel forward, recompute backward) against autograd
+     through the plain version; K4 and K5 at widths the wgmma kernel
+     refuses (5 views, layer widths 96, 96, 80, 48 | 48, 48, K5 with 16
+     keypoints and 2 levels) on the wmma route, outputs and gradients; and
      both forms of `models/mlp.py:dot_f32` in bf16 (inference: torch.mm
      with out_dtype=float32; autograd: the f32 product of bf16-rounded
      operands) against an f64 product, with their times;
@@ -40,7 +46,9 @@ Phases (any failure exits nonzero):
      channel: overflow 0, culled == unculled bit for bit, K2 never
      launched; held against the plain lookup of the fused map) and, at
      stride 2 with the cull off, the fused map with K3 and K6 (held
-     against composite + importance_z);
+     against composite + importance_z); and a 128² camera of a model at
+     those non-zju widths with `use_pallas_geo_mlp` (K5 on the wmma
+     route, every query) against the flag-off render;
   5. agreement: toy-size f32 renders on the card against the same renders
      on the CPU (the paths the CPU tests hold against the JAX package),
      with each kernel's flag off and on;
@@ -124,14 +132,20 @@ def kernel_device_ms(fn, name, iters=20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(device_us(e) for e in prof.key_averages() if name in e.key)
+    # kernels only: an aten op's event (aten::grid_sampler_2d) carries its
+    # kernels' device time again
+    us = sum(device_us(e) for e in prof.key_averages()
+             if name in e.key and not e.key.startswith("aten::"))
     if us <= 0:
         raise SystemExit(f"the profile shows no device time for a kernel named {name}")
     return us / 1e3 / iters
 
 
+_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def device_us(e):
@@ -140,26 +154,47 @@ def device_us(e):
             or getattr(e, "self_cuda_time_total", 0) or 0)
 
 
+def time_lookup(call, kernel_name, library_call) -> dict:
+    """A lookup kernel's and grid_sample's times on the same inputs: device
+    time from the profile (ms, library_ms) and a call's time by CUDA events
+    (call_ms, library_call_ms: for a short kernel mostly host work)."""
+    return {"ms": kernel_device_ms(call, kernel_name),
+            "call_ms": cuda_ms(call, iters=100),
+            "library_ms": kernel_device_ms(library_call, "grid_sampler_2d"),
+            "library_call_ms": cuda_ms(library_call, iters=100)}
+
+
 def check_onehot_bilinear(dev) -> dict:
-    """K2 against its plain version; returns its kernels-line entry."""
+    """K2 against its plain version; returns its kernels-line entry, timed
+    at uniform points (as in earlier runs) with the times at ray-coherent
+    points (as the render gives them) beside."""
     from keypointnerf_torch.ops import onehot_bilinear as k2
 
     rs = np.random.default_rng(0)
     entry = None
     # main-path shapes: 3 source views, 256² x 8 tex map, 2048 rays x 64
-    # samples per query chunk; plus an odd map shape
-    for (V, H, W, C, N) in ((3, 256, 256, 8, 2048 * 64), (3, 33, 17, 8, 5000)):
+    # samples per query chunk (uniform and ray-coherent points); plus odd
+    # map shapes, one with a channel count no vector load divides
+    for (V, H, W, C, N, what) in ((3, 256, 256, 8, 2048 * 64, "uniform"),
+                                  (3, 256, 256, 8, 2048 * 64, "render"),
+                                  (3, 33, 17, 8, 5000, "uniform"),
+                                  (3, 33, 17, 5, 5003, "uniform")):
         maps32 = torch.as_tensor(rs.normal(size=(V, H, W, C)).astype(np.float32), device=dev)
-        xy = torch.as_tensor(rs.uniform(-1.3, 1.3, (V, N, 2)).astype(np.float32), device=dev)
+        xy_np = (ray_like_xy(rs, V, 2048, 64) if what == "render"
+                 else rs.uniform(-1.3, 1.3, (V, N, 2)).astype(np.float32))
+        xy = torch.as_tensor(xy_np, device=dev)
+        N = xy.shape[1]
         for dt, tol in ((torch.bfloat16, 0.0), (torch.float32, 1e-6)):
             maps = maps32.to(dt).contiguous()
             got = k2.multiview_onehot_bilinear_sample(maps, xy)
             ref = k2.onehot_bilinear_plain(maps, xy)
             torch.cuda.synchronize()
+            finite = bool(torch.isfinite(got.float()).all())
             err = (got.float() - ref.float()).abs().max().item()
-            ok = err <= tol and got.shape == (V, N, C) and got.dtype == dt
-            print(f"K2 onehot_bilinear {V}x{H}x{W}x{C} {str(dt)[6:]} N={N}: "
-                  f"max_abs_err={err} (bound {tol}) {'ok' if ok else 'FAIL'}", flush=True)
+            ok = finite and err <= tol and got.shape == (V, N, C) and got.dtype == dt
+            print(f"K2 onehot_bilinear {V}x{H}x{W}x{C} {str(dt)[6:]} N={N} ({what}): "
+                  f"max_abs_err={err} (bound {tol}), finite {finite} {'ok' if ok else 'FAIL'}",
+                  flush=True)
             if not ok:
                 raise SystemExit(f"K2 disagrees with its plain version: {err}")
             if (H, W, dt) == (256, 256, torch.bfloat16):
@@ -167,11 +202,10 @@ def check_onehot_bilinear(dev) -> dict:
                 # yardstick reads bf16-rounded coordinates (cast untimed)
                 nchw = maps.permute(0, 3, 1, 2)      # a view of the same map
                 grid = xy[:, None].to(dt)             # (V, 1, N, 2)
-                ms = cuda_ms(lambda: k2.multiview_onehot_bilinear_sample(maps, xy))
-                plain_ms = cuda_ms(lambda: k2.onehot_bilinear_plain(maps, xy), iters=10)
-                library_ms = cuda_ms(lambda: F.grid_sample(
-                    nchw, grid, mode="bilinear", padding_mode="border",
-                    align_corners=True))
+                t = time_lookup(lambda: k2.multiview_onehot_bilinear_sample(maps, xy),
+                                "onehot_bilinear_kernel",
+                                lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                                      padding_mode="border", align_corners=True))
                 esize = maps.element_size()
                 n_bytes = maps.numel() * esize + xy.numel() * 4 + V * N * C * esize
                 # per point: ~14 flops of coordinates and weights; per
@@ -179,19 +213,25 @@ def check_onehot_bilinear(dev) -> dict:
                 n_ops = V * N * (14 + 9 * C)
                 t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
                 t_ops = n_ops / F32_FLOPS_PER_S * 1e3
-                entry = {
-                    "name": "onehot_bilinear", "route": "cuda",
-                    "source": "keypointnerf_torch/csrc/onehot_bilinear.cu",
-                    "replaces": "keypointnerf_tpu/ops/pallas/onehot_bilinear.py:83",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": library_ms,
-                }
-                print(f"K2 timing (bf16, 3x256x256x8, N=131072): kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, "
-                      f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}, "
-                      f"{n_bytes} bytes, {n_ops} flops)", flush=True)
+                print(f"K2 timing (bf16, 3x256x256x8, N={N}, {what} points): kernel "
+                      f"{t['ms']:.5f} ms of device time ({t['call_ms']:.5f} ms a call by CUDA "
+                      f"events), grid_sample {t['library_ms']:.5f} ms of device time "
+                      f"({t['library_call_ms']:.5f} ms a call by CUDA events), bound "
+                      f"{max(t_bytes, t_ops):.5f} ms ({n_bytes} bytes, {n_ops} flops)",
+                      flush=True)
+                if what == "uniform":
+                    entry = {
+                        "name": "onehot_bilinear", "route": "cuda",
+                        "source": "keypointnerf_torch/csrc/onehot_bilinear.cu",
+                        "replaces": "keypointnerf_tpu/ops/pallas/onehot_bilinear.py:83",
+                        "max_abs_err": err, **t,
+                        "plain_ms": cuda_ms(lambda: k2.onehot_bilinear_plain(maps, xy),
+                                            iters=10),
+                        "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    }
+                else:
+                    entry["render_points"] = t
     return entry
 
 
@@ -225,15 +265,21 @@ def check_dma_gather(dev) -> dict:
     from keypointnerf_torch.ops import dma_gather as k3
 
     rs = np.random.default_rng(4)
-    V, H, W, C = 3, 512, 512, 84                       # the fused 512² map
-    maps32 = torch.as_tensor(rs.normal(size=(V, H, W, C)).astype(np.float32), device=dev)
-    # the render query's shape (2048 rays x 64 samples, ray-coherent), and a
-    # ragged N of uniform points reaching outside [-1, 1]
-    cases = (("render", 2048 * 64, ray_like_xy(rs, V, 2048, 64)),
-             ("ragged", 100_003, rs.uniform(-1.3, 1.3, (V, 100_003, 2)).astype(np.float32)))
+    V = 3
+    # the fused 512² map at the render query's shape (2048 rays x 64
+    # samples, ray-coherent) and at a ragged N of uniform points reaching
+    # outside [-1, 1]; an odd map whose 37 channels allow no vector load
+    uniform = lambda n: rs.uniform(-1.3, 1.3, (V, n, 2)).astype(np.float32)  # noqa: E731
+    cases = (("render", (512, 512, 84), ray_like_xy(rs, V, 2048, 64)),
+             ("ragged", (512, 512, 84), uniform(100_003)),
+             ("odd", (33, 17, 37), uniform(5003)))
     entry = None
-    for what, N, xy_np in cases:
+    for what, (H, W, C), xy_np in cases:
+        if what != "ragged":
+            maps32 = torch.as_tensor(rs.normal(size=(V, H, W, C)).astype(np.float32),
+                                     device=dev)
         xy = torch.as_tensor(xy_np, device=dev)
+        N = xy.shape[1]
         for dt in (torch.bfloat16, torch.float32):
             maps = maps32.to(dt).contiguous()
             got = k3.multiview_bilinear_sample_dma(maps, xy)
@@ -250,12 +296,11 @@ def check_dma_gather(dev) -> dict:
             if what == "render" and dt == torch.bfloat16:
                 nchw = maps.permute(0, 3, 1, 2).contiguous()   # the yardstick's layout
                 grid = xy[:, None].to(dt)                       # (V, 1, N, 2)
-                call_ms = cuda_ms(lambda: k3.multiview_bilinear_sample_dma(maps, xy))
-                ms = kernel_device_ms(lambda: k3.multiview_bilinear_sample_dma(maps, xy),
-                                      "dma_gather_kernel")
+                t = time_lookup(lambda: k3.multiview_bilinear_sample_dma(maps, xy),
+                                "dma_gather_kernel",
+                                lambda: F.grid_sample(nchw, grid, mode="bilinear",
+                                                      padding_mode="border", align_corners=True))
                 plain_ms = cuda_ms(lambda: k3.dma_gather_plain(maps, xy), iters=10)
-                library_ms = cuda_ms(lambda: F.grid_sample(
-                    nchw, grid, mode="bilinear", padding_mode="border", align_corners=True))
                 esize = maps.element_size()
                 map_bytes = touched_map_bytes(maps, xy)
                 n_bytes = map_bytes + xy.numel() * 4 + V * N * C * esize
@@ -268,14 +313,15 @@ def check_dma_gather(dev) -> dict:
                     "name": "dma_gather", "route": "cuda",
                     "source": "keypointnerf_torch/csrc/dma_gather.cu",
                     "replaces": "keypointnerf_tpu/ops/pallas/dma_gather.py:80",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "max_abs_err": err, **t, "plain_ms": plain_ms,
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": library_ms, "call_ms": call_ms,
                 }
                 print(f"K3 timing (bf16, {V}x{H}x{W}x{C}, N={N}, ray-coherent points): kernel "
-                      f"{ms:.4f} ms of device time ({call_ms:.4f} ms a call by CUDA events), plain {plain_ms:.4f} ms, grid_sample (NCHW copy) "
-                      f"{library_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+                      f"{t['ms']:.5f} ms of device time ({t['call_ms']:.5f} ms a call by CUDA "
+                      f"events), plain {plain_ms:.4f} ms, grid_sample (NCHW copy) "
+                      f"{t['library_ms']:.5f} ms of device time ({t['library_call_ms']:.5f} ms "
+                      f"a call by CUDA events), bound {entry['bound_ms']:.5f} ms "
                       f"({entry['bound_by']}: {n_bytes} bytes, of them {map_bytes} of the "
                       f"{maps.numel() * esize} map bytes this query touches; {n_ops} flops)",
                       flush=True)
@@ -454,13 +500,14 @@ def check_onehot_dmap(dev) -> dict:
 GEO_DIMS1, GEO_DIMS2, GEO_SKIP = (168, 128, 128, 120, 64), (128, 64, 64, 2), (64, 8)
 
 
-def seeded_geo_mlp(dev, seed=3):
-    """A full-width GeoFusionMLP with numpy-seeded weights (He-normal
-    directions, gains around sqrt(2), small biases)."""
+def seeded_geo_mlp(dev, seed=3, dims1=GEO_DIMS1, dims2=GEO_DIMS2):
+    """A GeoFusionMLP (full width unless `dims1` / `dims2` say otherwise)
+    with numpy-seeded weights (He-normal directions, gains around sqrt(2),
+    small biases)."""
     from keypointnerf_torch.models.mlp import GeoFusionMLP
 
     rs = np.random.default_rng(seed)
-    mlp = GeoFusionMLP(GEO_DIMS1, GEO_DIMS2, GEO_SKIP, (0, 2), dtype=torch.bfloat16)
+    mlp = GeoFusionMLP(dims1, dims2, GEO_SKIP, (0, 2), dtype=torch.bfloat16)
     with torch.no_grad():
         for name, p in mlp.named_parameters():
             if name.endswith("weight_g"):
@@ -909,6 +956,98 @@ def check_fused_geo_mlp(dev) -> dict:
     return result
 
 
+# A width set the wgmma kernel refuses: layer widths 96, 96, 80, 48 | 48, 48,
+# 5 views, K5 with 16 keypoints and 2 levels (an 80-wide encoding, K4's sp
+# too). K4 and K5 take the wmma route there, held at the bf16 bounds above
+# (worst 5e-3, mean 1e-6 of an output's max) and, through the Function in
+# bf16 with the quadratic loss, the gradients at 1e-2 of a leaf's max (the
+# cotangents carry the forward's bf16 flips; the bf16 bound of
+# tests/test_torch_fused_geo_mlp.py's card test).
+WMMA_DIMS1, WMMA_DIMS2, WMMA_VKL = (80, 96, 96, 80, 48), (96, 48, 48, 2), (5, 16, 2)
+
+
+def check_geo_mlp_wmma(dev) -> None:
+    """K4 and K5 on the wmma route against their plain versions."""
+    from keypointnerf_torch.ops import fused_geo_mlp as fg
+
+    V, K, L = WMMA_VKL
+    bf = torch.bfloat16
+    mlp = seeded_geo_mlp(dev, seed=5, dims1=WMMA_DIMS1, dims2=WMMA_DIMS2)
+    with torch.no_grad():
+        ws = [w.clone() for w in fg.fold_weight_norm(mlp)]
+    names = ("out", "valid", "latent_view", "latent_fused")
+
+    def variants(x, sp):
+        return (("fused_geo_mlp", fg.geo_mlp_apply, fg.mlp_stack_plain, (sp,), {}),
+                ("sp_fused_geo_mlp", fg.sp_geo_mlp_apply, fg.sp_mlp_stack_plain,
+                 (x["pts_cam"], x["kpt_cam"]), dict(sp_level=L)))
+
+    for N in (2048 * 64, 100_003):
+        x = geo_mlp_inputs(dev, N, seed=N + 1, V=V, K=K)
+        rest = (x["f0"], x["f1"], x["mask"], x["weight"])
+        sp = fg.rel_z_decay_encoding(x["pts_cam"], x["kpt_cam"], L, 0.1, 1.0)
+        for kname, apply, plain, lead, kw in variants(x, sp):
+            before = dict(apply.launches_by_route)
+            with torch.no_grad():
+                got = apply(ws, *lead, *rest, compute_dtype=bf, **kw)
+                ref = plain(*lead, *rest, ws, compute_dtype=bf, **kw)
+            torch.cuda.synchronize()
+            took = {r: apply.launches_by_route[r] - before[r] for r in before}
+            if took != {"wgmma": 0, "wmma": 1, "f32": 0}:
+                raise SystemExit(f"{kname} at V={V}, widths {WMMA_DIMS1}: routes {took}, "
+                                 f"not one wmma launch")
+            worst = mean = 0.0
+            for name, a, b in zip(names, ref, got):
+                if a.shape != b.shape or not bool(torch.isfinite(b).all()):
+                    raise SystemExit(f"{kname} (wmma) {name}: shape differs or not finite")
+                if name == "valid":
+                    if not torch.equal(a, b):
+                        raise SystemExit(f"{kname} (wmma): valid differs")
+                    continue
+                scale = a.abs().max().item()
+                worst = max(worst, (a - b).abs().max().item() / scale)
+                mean = max(mean, (a - b).abs().mean().item() / scale)
+            ok = worst <= 5e-3 and mean <= 1e-6
+            print(f"{kname} wmma route V={V} K={K} L={L} widths {WMMA_DIMS1[1:]} | "
+                  f"{WMMA_DIMS2[1:]} N={N} bf16: worst error {worst:.3e} of an output's max "
+                  f"(bound 5e-3), mean {mean:.3e} (bound 1e-6), valid exact, launches by "
+                  f"route {took} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise SystemExit(f"{kname} (wmma route) disagrees with its plain version")
+            if N == 2048 * 64:
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: apply(ws, *lead, *rest, compute_dtype=bf, **kw),
+                                 iters=10)
+                print(f"{kname} wmma route timing (V={V}, N={N}): {ms:.4f} ms a call by CUDA "
+                      f"events", flush=True)
+
+    x = geo_mlp_inputs(dev, 5000, seed=12, V=V, K=K)
+    sp = fg.rel_z_decay_encoding(x["pts_cam"], x["kpt_cam"], L, 0.1, 1.0)
+    for kname, apply, plain, lead, kw in variants(x, sp):
+        res = []
+        for through_kernel in (True, False):
+            lead_g = [t.clone().requires_grad_(True) for t in lead]
+            f0 = x["f0"].clone().requires_grad_(True)
+            wl = [w.clone().requires_grad_(True) for w in ws]
+            rest = (f0, x["f1"], x["mask"], x["weight"])
+            if through_kernel:
+                out, _, lv, lf = apply(wl, *lead_g, *rest, compute_dtype=bf, **kw)
+            else:
+                out, _, lv, lf = plain(*lead_g, *rest, wl, compute_dtype=bf, **kw)
+            loss = (out ** 2).mean() + (lv ** 2).mean() + (lf ** 2).mean()
+            res.append(torch.autograd.grad(loss, [*lead_g, f0, *wl]))
+        if not all(bool(torch.isfinite(a).all()) for a in res[0]):
+            raise SystemExit(f"{kname} (wmma): a gradient is not finite")
+        worst = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*res))
+        print(f"{kname} wmma route gradients (kernel forward + recompute backward vs autograd "
+              f"through the plain version, bf16, N=5000): worst {worst:.3e} of a leaf's max "
+              f"(bound 1e-2)", flush=True)
+        if not worst <= 1e-2:
+            raise SystemExit(f"{kname} (wmma route): gradients disagree")
+    print(f"launches by route: K4 {fg.geo_mlp_apply.launches_by_route}, K5 "
+          f"{fg.sp_geo_mlp_apply.launches_by_route}", flush=True)
+
+
 def earlier_dot_f32(x, w, dtype):
     """dot_f32 before the f32 sum was kept: the bf16 product's f32 sum
     rounded to bf16, then upcast (timed for comparison only)."""
@@ -1198,6 +1337,44 @@ def render_rel_z(dev) -> int:
     compare_renders(outs[False], outs[True], "256² rel_z render, K4 on vs off",
                     K4_RENDER_BOUNDS)
     return launches
+
+
+def render_wmma_widths(dev) -> None:
+    """A bf16 model at WMMA_DIMS (5 source views, 16 keypoints, 2 levels)
+    renders a 128² camera with use_pallas_geo_mlp, every query on the wmma
+    route, held against the flag-off render by K5_RENDER_BOUNDS (no cull:
+    every ray marched)."""
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.models import KeypointNeRF, KeypointNeRFConfig, ViewBatch, strict_preset
+    from keypointnerf_torch.ops import geo_mlp_apply as k4
+    from keypointnerf_torch.ops import sp_geo_mlp_apply as k5
+    from keypointnerf_torch.render import render_image
+
+    size, chunk = 128, 2048
+    V, K, L = WMMA_VKL
+    base = KeypointNeRFConfig(n_kpt=K, sp_level=L, mlp_dims1=WMMA_DIMS1, mlp_dims2=WMMA_DIMS2)
+    cfg = strict_preset(base, cull_budget=1.0)
+    sample = make_sample(SyntheticConfig(image_size=size, n_views=V + 1, n_kpt=K), seed=0)
+    R, t = orbit_camera(0.0)
+    vb = ViewBatch.from_numpy(dict(sample, tar_R=R, tar_t=t), device=dev)
+    outs = {}
+    for flag in (False, True):
+        model = KeypointNeRF(dataclasses.replace(cfg, use_pallas_geo_mlp=flag),
+                             device=dev, seed=0)
+        model.mlp_geo.layers2.layers[-1].linear.bias.data[1] += 2.0
+        k4.launches = k5.launches = 0
+        k5.launches_by_route = dict.fromkeys(k5.launches_by_route, 0)
+        outs[flag] = render_image(model, vb, height=size, width=size, chunk=chunk)
+        torch.cuda.synchronize()
+    expected = 2 * math.ceil(size * size / chunk)
+    print(f"render {size}² strict bf16, V={V}, K={K}, L={L}, widths {WMMA_DIMS1[1:]} | "
+          f"{WMMA_DIMS2[1:]}, use_pallas_geo_mlp: K5 launches by route "
+          f"{k5.launches_by_route} (expected {expected} wmma), K4 {k4.launches}; acc_fine>0 "
+          f"rays {int((outs[True]['acc_fine'] > 0).sum())}", flush=True)
+    if k5.launches_by_route != {"wgmma": 0, "wmma": expected, "f32": 0} or k4.launches != 0:
+        raise SystemExit("every query of the non-zju render must take K5's wmma route")
+    compare_renders(outs[False], outs[True], f"{size}² render at non-zju widths, K5 (wmma) "
+                    f"on vs off", K5_RENDER_BOUNDS)
 
 
 # The fused-map render with K3 against the same render with the plain
@@ -1608,11 +1785,17 @@ def main() -> int:
     entries, launches = {}, {}
     if "kernels" in todo:
         phase("kernels against their plain versions")
-        entries = {"onehot_bilinear": check_onehot_bilinear(dev),
-                   "onehot_dmap": check_onehot_dmap(dev),
-                   **check_fused_geo_mlp(dev),
-                   "dma_gather": check_dma_gather(dev),
-                   "composite_importance": check_composite_importance(dev)}
+        entries = {"onehot_bilinear": check_onehot_bilinear(dev)}
+        phase("K1")
+        entries["onehot_dmap"] = check_onehot_dmap(dev)
+        phase("K4 / K5")
+        entries.update(check_fused_geo_mlp(dev))
+        phase("K3")
+        entries["dma_gather"] = check_dma_gather(dev)
+        phase("K6")
+        entries["composite_importance"] = check_composite_importance(dev)
+        phase("K4 / K5 on the wmma route")
+        check_geo_mlp_wmma(dev)
         check_dot_f32(dev)
 
     if "render" in todo:
@@ -1630,6 +1813,8 @@ def main() -> int:
         del ctx
         phase("strict render with sp_type rel_z and use_pallas_geo_mlp (K4)")
         launches["fused_geo_mlp"] = render_rel_z(dev)
+        phase("strict render at widths the wgmma kernel refuses, use_pallas_geo_mlp (wmma K5)")
+        render_wmma_widths(dev)
 
     if "agreement" in todo:
         phase("small-input agreement")
@@ -1663,6 +1848,7 @@ def main() -> int:
         return 2
     for name, entry in entries.items():
         entry["launches"] = launches[name]
+    print(f"whole run {time.perf_counter() - _START:.1f} s", flush=True)
     print(json.dumps({"kernels": list(entries.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -25,8 +25,9 @@ JAX package's program computes on the CPU (tests/test_torch_fused_map.py):
 Channels need no padding: the TPU kernel's 128-lane pad is a layout of
 its DMA slices, not part of the function, so the map may keep its 84
 channels. On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/dma_gather.cu, one launch for all views) or raises; on a CPU tensor
-it runs `dma_gather_plain`.
+(csrc/dma_gather.cu, one launch for all views; its threads move a row in
+pieces of `feat_sample.piece_bytes`) or raises; on a CPU tensor it runs
+`dma_gather_plain`.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import functools
 
 import torch
 
-from .feat_sample import bilinear_coords, gather_corners
+from .feat_sample import bilinear_coords, check_lookup, gather_corners, launch_lookup
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -65,45 +66,18 @@ def dma_gather_plain(feats, xy):
     return _lerp(top, wy, bot)
 
 
-def _check(feats, xy):
-    if feats.dim() != 4 or xy.dim() != 3 or xy.shape[-1] != 2:
-        raise ValueError(
-            f"expected maps (V, H, W, C) and points (V, N, 2), got "
-            f"{tuple(feats.shape)} and {tuple(xy.shape)}"
-        )
-    if xy.shape[0] != feats.shape[0]:
-        raise ValueError(f"{feats.shape[0]} maps but {xy.shape[0]} point sets")
-    if feats.shape[1] < 2 or feats.shape[2] < 2:
-        raise ValueError(f"maps must be at least 2x2, got {tuple(feats.shape)}")
-    if feats.dtype not in _DTYPE_CODE:
-        raise TypeError(f"map dtype must be float32 or bfloat16, got {feats.dtype}")
-    if xy.dtype != torch.float32:
-        raise TypeError(f"points must be float32, got {xy.dtype}")
-    if feats.device != xy.device:
-        raise ValueError(f"maps on {feats.device} but points on {xy.device}")
-
-
 @functools.cache
 def _kernel():
     from ._build import load
 
     fn = load("dma_gather").kpn_dma_gather
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(feats, xy):
-    if not (feats.is_contiguous() and xy.is_contiguous()):
-        raise ValueError("the kernel takes contiguous maps and points")
-    fn = _kernel()
-    V, H, W, C = feats.shape
-    N = xy.shape[1]
-    out = torch.empty((V, N, C), dtype=feats.dtype, device=feats.device)
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream(feats.device).cuda_stream
-        err = fn(feats.data_ptr(), xy.data_ptr(), out.data_ptr(),
-                 V, N, H, W, C, _DTYPE_CODE[feats.dtype], stream)
+    out, err = launch_lookup(_kernel(), feats, xy, _DTYPE_CODE[feats.dtype])
     if err != 0:
         raise RuntimeError(f"dma_gather kernel launch failed: CUDA error {err}")
     multiview_bilinear_sample_dma.launches += 1
@@ -118,7 +92,7 @@ def multiview_bilinear_sample_dma(feats, xy):
     `multiview_bilinear_sample_dma.launches`), CPU tensors to the plain
     version.
     """
-    _check(feats, xy)
+    check_lookup(feats, xy, _DTYPE_CODE)
     if feats.is_cuda:
         return _launch(feats, xy)
     if feats.device.type != "cpu":

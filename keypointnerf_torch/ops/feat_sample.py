@@ -46,6 +46,64 @@ def gather_corners(feats, x0, y0):
     return [flat[base + off] for off in (0, 1, W, W + 1)]
 
 
+def check_lookup(feats, xy, dtypes):
+    """Raise on what the lookup kernels (K2, K3) do not take: maps (V, H,
+    W, C) at least 2x2 in one of `dtypes`, f32 points (V, N, 2) on the same
+    device."""
+    fs, xs = feats.shape, xy.shape
+    if len(fs) != 4 or len(xs) != 3 or xs[2] != 2:
+        raise ValueError(f"expected maps (V, H, W, C) and points (V, N, 2), got "
+                         f"{tuple(fs)} and {tuple(xs)}")
+    if xs[0] != fs[0]:
+        raise ValueError(f"{fs[0]} maps but {xs[0]} point sets")
+    if fs[1] < 2 or fs[2] < 2:
+        raise ValueError(f"maps must be at least 2x2, got {tuple(fs)}")
+    if feats.dtype not in dtypes:
+        raise TypeError(f"map dtype must be float32 or bfloat16, got {feats.dtype}")
+    if xy.dtype != torch.float32:
+        raise TypeError(f"points must be float32, got {xy.dtype}")
+    if feats.get_device() != xy.get_device() or feats.device.type != xy.device.type:
+        raise ValueError(f"maps on {feats.device} but points on {xy.device}")
+
+
+def piece_bytes(row_bytes: int, esize: int, *ptrs: int) -> int:
+    """The bytes a lookup kernel's thread moves at once along a map row: 16
+    or 8 where the row's bytes and every pointer allow it, else one element
+    (the kernels' scalar variant). Chosen before the launch; the kernels
+    refuse a width the row or a pointer does not allow."""
+    for width in (16, 8):
+        if row_bytes % width == 0 and all(p % width == 0 for p in ptrs):
+            return width
+    return esize
+
+
+def launch_lookup(fn, feats, xy, dtype_code):
+    """One launch of a lookup kernel with the C signature of K2 and K3
+    (maps, xy, out, V, N, H, W, C, dtype, piece_bytes, stream) on the
+    current stream of the maps' device; returns the output and the kernel's
+    CUDA error code. Its host work is most of a call's time at the render's
+    shapes, so it takes the raw stream handle (`current_stream()` builds a
+    Stream object each call) and switches devices only when it must."""
+    if not (feats.is_contiguous() and xy.is_contiguous()):
+        raise ValueError("the kernel takes contiguous maps and points")
+    V, H, W, C = feats.shape
+    N = xy.shape[1]
+    out = feats.new_empty((V, N, C))
+    esize = feats.element_size()
+    ptr, out_ptr = feats.data_ptr(), out.data_ptr()
+    piece = piece_bytes(C * esize, esize, ptr, out_ptr)
+    index = feats.get_device()
+
+    def launch():
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        return fn(ptr, xy.data_ptr(), out_ptr, V, N, H, W, C, dtype_code, piece, stream)
+
+    if index == torch.cuda.current_device():
+        return out, launch()
+    with torch.cuda.device(index):
+        return out, launch()
+
+
 def multiview_bilinear_sample(feats, xy):
     """Sample V feature maps at per-view locations.
 

@@ -15,23 +15,25 @@ one product per layer, `sin` / `cos` of each level taken directly (not by
 operands to `compute_dtype` and keeps the sum in f32 (`models.mlp.dot_f32`,
 whose autograd form rounds each operand gradient once, as JAX's does).
 
-On CUDA tensors the wrappers launch the hand-written kernel
-(csrc/fused_geo_mlp.cu; counted in `.launches`) or raise; on CPU tensors
-they run the plain version. With bf16 products the kernel keeps every
-layer's weights in shared memory and is built for the zju layer widths:
-`_check_kernel` raises, before any launch, on other widths, on more than
-four views, on more than 256 layer-0 inputs or 16 f1 channels, on K5
-keypoints or levels other than the zju recipe's 24 and 3, and on weights
-that do not fit. Either way the call is a `torch.autograd.Function` that
-saves only its inputs: its backward re-runs the plain stack under autograd
-and differentiates that. This recompute is
-the ported semantics of the JAX kernels' `custom_vjp` (whose backward is
-the XLA recompute of the same stack), not a fallback; the forward of a
-training step on the card always goes through the kernel.
+On CUDA tensors the wrappers launch a hand-written kernel
+(csrc/fused_geo_mlp.cu; counted in `.launches` and, by route, in
+`.launches_by_route`) or raise; on CPU tensors they run the plain version.
+`kernel_route` picks the kernel from the shapes before any launch: with
+bf16 products the wgmma kernel (every layer's weights resident in shared
+memory, built for the zju widths) where it takes them, else the wmma
+kernel (any widths, weights read from L2); f32 products take the f32
+kernel. It raises only where no kernel takes the shapes (a tile over one
+block's shared memory, more than 12 encoding levels). Either way the call
+is a `torch.autograd.Function` that saves only its inputs: its backward
+re-runs the plain stack under autograd and differentiates that. This
+recompute is the ported semantics of the JAX kernels' `custom_vjp` (whose
+backward is the XLA recompute of the same stack), not a fallback; the
+forward of a training step on the card always goes through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -155,83 +157,116 @@ def _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
     return c0, c1, h1, h2, h3, dl, g1, g2, dout
 
 
-# The bf16 kernel: the layer out widths it is compiled for (the zju
-# architecture), the most views its pool unrolls, the layer-0 inputs whose A
-# fragments it holds at once, K5's keypoints and levels (its encoding is
-# unrolled) and the shared memory one block may use (csrc/fused_geo_mlp.cu
-# `kN`, `kMaxViews`, `kMaxKb0`, `kK5Keypoints`, `kK5Levels`). These copies
-# let `_check_kernel` refuse with a reason before any build or launch (and
-# on any device); the kernel checks the same limits again, and that its
-# packed layout fits the scratch sized here, and refuses a launch that
-# breaks them (invalid-value).
+# The kernels' limits, mirrored from csrc/fused_geo_mlp.cu so that
+# `kernel_route` can choose and refuse before any build or launch (and on any
+# device); the kernels check the same limits again and refuse a launch that
+# breaks them (invalid-value). The wgmma kernel: the layer out widths it is
+# compiled for (the zju architecture), the most views its pool unrolls, the
+# layer-0 inputs whose A fragments it holds at once, K5's keypoints and
+# levels (`kN`, `kMaxViews`, `kMaxKb0`, `kK5Keypoints`, `kK5Levels`). The
+# wmma and f32 kernels: a 32-point tile (`kTileN`) of 256 threads, the levels
+# their frequency table holds (`kMaxLevels`). All: the shared memory one
+# block may use (`kMaxSmem`).
 KERNEL_WIDTHS = (128, 128, 120, 64, 64, 64)
 KERNEL_MAX_VIEWS = 4
 KERNEL_MAX_DOUT = 8
 KERNEL_MAX_LAYER0_INPUTS = 256
 KERNEL_SP_ARGS = (24, 3)          # K5: keypoints, levels
+KERNEL_MAX_LEVELS = 12
+TILE_N = 32
+N_WARPS = 8
 SMEM_BYTES = 232_448
+ROUTES = ("wgmma", "wmma", "f32")
+_ROUTE_CODE = {"f32": 0, "wgmma": 1, "wmma": 2}
 
 
 def _pad(n: int, m: int) -> int:
     return (n + m - 1) // m * m
 
 
-def packed_shapes(widths, dsp):
-    """The bf16 kernel's packed layers, (rows, cols) each: K padded to 16,
-    N to 8."""
+def _layers(widths, dsp):
     c0, c1, h1, h2, h3, dl, g1, g2, dout = widths
-    ins = (dsp + c0, h1, h2 + c1, h3, 2 * dl, g1, g2)
-    outs = (h1, h2, h3, dl, g1, g2, dout)
-    return [(_pad(i, 16), _pad(o, 8)) for i, o in zip(ins, outs)]
+    return (dsp + c0, h1, h2 + c1, h3, 2 * dl, g1, g2), (h1, h2, h3, dl, g1, g2, dout)
+
+
+def packed_shapes(widths, dsp, route="wgmma"):
+    """A bf16 route's packed layers, (rows, cols) each: K padded to 16, N
+    to 8 (wgmma) or 16 (wmma)."""
+    n_pad = 8 if route == "wgmma" else 16
+    return [(_pad(i, 16), _pad(o, n_pad)) for i, o in zip(*_layers(widths, dsp))]
 
 
 def smem_bytes(shapes, V, K, sp_args) -> int:
-    """Shared memory of one block of the bf16 kernel: the packed bf16
+    """Shared memory of one block of the wgmma kernel: the packed bf16
     weights, the f32 biases, every view's keypoints (K5), the mbarrier."""
     weights = 2 * sum(k * n for k, n in shapes)
     extra = 4 * (sum(n for _, n in shapes) + (V * K * 3 if sp_args is not None else 0))
     return _pad(weights + extra, 8) + 8
 
 
-def _check_kernel(V, K, dsp, widths, compute_dtype, sp_args):
-    """Raise on what the CUDA kernel does not take, before any launch;
-    returns the bf16 kernel's packed layer shapes (None for f32 products)."""
-    if compute_dtype != torch.bfloat16:
-        return None
+def tile_smem_bytes(V, K, dsp, widths, sp_args, esize) -> int:
+    """Shared memory of one block of the wmma (esize 2) or f32 (esize 4)
+    kernel: two activation buffers of a 32-point tile, every view's
+    latents, the wmma kernel's staging tiles, the keypoints (K5)."""
+    stride = max(_pad(i, 16) for i in _layers(widths, dsp)[0]) + 8
+    n = _pad(2 * TILE_N * stride * esize, 128) + 4 * V * TILE_N * widths[5]
+    n += 4 * N_WARPS * 256 if esize == 2 else 0
+    return n + (4 * K * 3 if sp_args is not None else 0)
+
+
+def _wgmma_misfit(V, K, dsp, widths, sp_args):
+    """Why the wgmma kernel does not take these shapes (None if it does)."""
     c0, c1, h1, h2, h3, dl, g1, g2, dout = widths
     if (h1, h2, h3, dl, g1, g2) != KERNEL_WIDTHS or not 1 <= dout <= KERNEL_MAX_DOUT:
-        raise ValueError(f"the bf16 kernel is built for layer widths {KERNEL_WIDTHS} and "
-                         f"1..{KERNEL_MAX_DOUT} outputs, got {(h1, h2, h3, dl, g1, g2)} and {dout}")
+        return (f"it is built for layer widths {KERNEL_WIDTHS} and 1..{KERNEL_MAX_DOUT} "
+                f"outputs, not {(h1, h2, h3, dl, g1, g2)} and {dout}")
     if V > KERNEL_MAX_VIEWS:
-        raise ValueError(f"the bf16 kernel takes at most {KERNEL_MAX_VIEWS} views, got {V}")
-    shapes = packed_shapes(widths, dsp)
-    need = smem_bytes(shapes, V, K, sp_args)
-    if need > SMEM_BYTES:
-        raise ValueError(f"the bf16 kernel's weights do not fit in shared memory: {need} "
-                         f"bytes of {SMEM_BYTES}")
-    if c1 > 16:
-        raise ValueError(f"the bf16 kernel takes at most 16 f1 channels, got {c1}")
-    if shapes[0][0] > KERNEL_MAX_LAYER0_INPUTS:
-        raise ValueError(f"the bf16 kernel takes at most {KERNEL_MAX_LAYER0_INPUTS} layer-0 "
-                         f"inputs, got {dsp + c0}")
+        return f"it takes at most {KERNEL_MAX_VIEWS} views, not {V}"
+    if not 1 <= c1 <= 16:
+        return f"it takes 1..16 f1 channels, not {c1}"
+    if _pad(dsp + c0, 16) > KERNEL_MAX_LAYER0_INPUTS:
+        return f"it takes at most {KERNEL_MAX_LAYER0_INPUTS} layer-0 inputs, not {dsp + c0}"
     if sp_args is not None and (K, sp_args[0]) != KERNEL_SP_ARGS:
-        raise ValueError(f"the bf16 K5 kernel is built for (keypoints, levels) = "
-                         f"{KERNEL_SP_ARGS}, got {(K, sp_args[0])}")
-    return shapes
+        return f"its K5 is built for (keypoints, levels) = {KERNEL_SP_ARGS}, not {(K, sp_args[0])}"
+    need = smem_bytes(packed_shapes(widths, dsp), V, K, sp_args)
+    if need > SMEM_BYTES:
+        return f"its weights need {need} bytes of shared memory, over {SMEM_BYTES}"
+    return None
+
+
+def kernel_route(V, K, dsp, widths, compute_dtype, sp_args) -> str:
+    """The CUDA kernel a call with these shapes takes, chosen before any
+    build or launch: "f32" for f32 products; for bf16, "wgmma" (weights
+    resident in shared memory, built for the zju widths) where it takes the
+    shapes, else "wmma" (any widths). Raises ValueError, with the reason,
+    on what no kernel takes: a tile over the shared memory of one block, or
+    more spatial-encoding levels than the kernels' frequency table."""
+    if sp_args is not None and not 0 <= sp_args[0] <= KERNEL_MAX_LEVELS:
+        raise ValueError(f"the kernels take 0..{KERNEL_MAX_LEVELS} encoding levels, "
+                         f"got {sp_args[0]}")
+    if compute_dtype == torch.bfloat16 and _wgmma_misfit(V, K, dsp, widths, sp_args) is None:
+        return "wgmma"
+    route = "f32" if compute_dtype == torch.float32 else "wmma"
+    need = tile_smem_bytes(V, K, dsp, widths, sp_args, 4 if route == "f32" else 2)
+    if need > SMEM_BYTES:
+        why = "" if route == "f32" else f" (the wgmma kernel refuses them: " \
+            f"{_wgmma_misfit(V, K, dsp, widths, sp_args)})"
+        raise ValueError(f"the {route} kernel's tile does not fit in shared memory: {need} "
+                         f"bytes of {SMEM_BYTES}{why}")
+    return route
 
 
 def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, widths):
-    """One launch of the CUDA kernel (K5 when `sp_args`, else K4)."""
+    """One launch of the CUDA kernel (K5 when `sp_args`, else K4) on the
+    route `kernel_route` picks."""
     V, N = lead[0].shape[:2]
     K = lead[1].shape[1] if sp_args is not None else 0
     dsp = (1 + 2 * sp_args[0]) * K if sp_args is not None else lead[0].shape[-1]
-    shapes = _check_kernel(V, K, dsp, widths, compute_dtype, sp_args)
+    route = kernel_route(V, K, dsp, widths, compute_dtype, sp_args)
     tensors = (*lead, f0, f1, mask, weight, *ws)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
-    from ._build import load
-
-    lib = load("fused_geo_mlp")
+    fn = _kernel(sp_args is not None)
     c0, c1, h1, h2, h3, dl, g1, g2, dout = widths
     dev = f0.device
     out = torch.empty((N, dout), dtype=torch.float32, device=dev)
@@ -239,38 +274,48 @@ def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, wid
     lv = torch.empty((V, N, dl), dtype=torch.float32, device=dev)
     lf = torch.empty((N, 2 * dl), dtype=torch.float32, device=dev)
     packed, n_packed = None, 0
-    if shapes is not None:
+    if route != "f32":
         # scratch for the kernel's own bf16 rounding and packing of the
         # weights (the kernel checks that its layout fits it)
-        n_packed = sum(k * n for k, n in shapes)
+        n_packed = sum(k * n for k, n in packed_shapes(widths, dsp, route))
         packed = torch.empty(n_packed, dtype=torch.bfloat16, device=dev)
     ptrs = [t.data_ptr() for t in tensors]
     ptrs += [packed.data_ptr() if packed is not None else None]
     ptrs += [t.data_ptr() for t in (out, valid, lv, lf)]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    code = _DTYPE_CODE[compute_dtype]
+    code = _ROUTE_CODE[route]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if sp_args is None:
-            fn = lib.kpn_geo_mlp
-            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                           ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
             dims = (V, N, lead[0].shape[-1], *widths, n_packed)
             err = fn(c_ptrs, (ctypes.c_int * len(dims))(*dims), code, stream)
         else:
-            fn = lib.kpn_sp_geo_mlp
-            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                           ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
             level, sigma, scale = sp_args
-            dims = (V, N, lead[1].shape[1], level, *widths, n_packed)
+            dims = (V, N, K, level, *widths, n_packed)
             err = fn(c_ptrs, (ctypes.c_int * len(dims))(*dims), float(sigma), float(scale),
                      code, stream)
     if err != 0:
-        raise RuntimeError(f"fused_geo_mlp kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_geo_mlp kernel launch ({route} route) failed: CUDA error {err}")
     wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
     return out, valid, lv, lf
+
+
+@functools.cache
+def _kernel(sp: bool):
+    from ._build import load
+
+    lib = load("fused_geo_mlp")
+    if sp:
+        fn = lib.kpn_sp_geo_mlp
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = lib.kpn_geo_mlp
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                       ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _plain(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
@@ -344,3 +389,5 @@ def sp_geo_mlp_apply(params, pts_cam, kpt_cam, f0, f1, mask, weight, sp_level=3,
 
 geo_mlp_apply.launches = 0
 sp_geo_mlp_apply.launches = 0
+geo_mlp_apply.launches_by_route = dict.fromkeys(ROUTES, 0)
+sp_geo_mlp_apply.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -301,49 +301,152 @@ def test_wrappers_refuse_bad_inputs(case):
         tfused.geo_mlp_apply(ws, meta["sp"], meta["f0"], meta["f1"], meta["mask"],
                              meta["weight"])
 
-    # what only the bf16 kernel refuses, raised on its route before any
-    # build or launch (so CPU tensors reach the check): more views than its
-    # pool keeps, weights over its shared memory, other layer widths
-    def kernel_route(kind, ws=None, **over):
+    # what no kernel takes (a tile over one block's shared memory, more
+    # levels than the frequency table) is refused on the route before any
+    # build or launch, so CPU tensors reach the check
+    def launch(kind, ws=None, compute_dtype=torch.bfloat16, sp_args=(3, 0.1, 1.0), **over):
+        x = dict(t, **over)
+        ws = tfused.fold_weight_norm(case["tm"]) if ws is None else ws
+        lead = (x["sp"],) if kind == "k4" else (x["pts_cam"], x["kpt_cam"])
+        sp_args = None if kind == "k4" else sp_args
+        rest = (x["f0"], x["f1"], x["mask"], x["weight"])
+        widths = tfused._check(lead, *rest, ws, compute_dtype, sp_args)
+        before = (tfused.geo_mlp_apply.launches, tfused.sp_geo_mlp_apply.launches)
+        try:
+            tfused._launch(tfused.geo_mlp_apply if kind == "k4" else tfused.sp_geo_mlp_apply,
+                           lead, *rest, ws, compute_dtype, sp_args, widths)
+        finally:
+            assert (tfused.geo_mlp_apply.launches, tfused.sp_geo_mlp_apply.launches) == before
+
+    wide = torch.zeros((V, N, 3000))    # c0 = 3000: a 32-point tile needs 406,528 bytes
+    ws_wide = list(tfused.fold_weight_norm(case["tm"]))
+    ws_wide[0] = torch.zeros((DIMS1[0] + 3000, DIMS1[1]))
+    for kind in ("k4", "k5"):
+        for dt in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError, match="tile does not fit in shared memory"):
+                launch(kind, ws_wide, dt, f0=wide)
+    ws_13 = _with_w0_rows(case, 27 * K)
+    with pytest.raises(ValueError, match="0..12 encoding levels"):
+        launch("k5", ws_13, sp_args=(13, 0.1, 1.0))
+
+    # what only the wgmma kernel refuses goes to the wmma kernel: more views
+    # than its pool keeps, weights over its shared memory, other layer
+    # widths, other K5 keypoints, more than 256 layer-0 inputs
+    def route(kind, ws=None, **over):
         x = dict(t, **over)
         ws = tfused.fold_weight_norm(case["tm"]) if ws is None else ws
         lead = (x["sp"],) if kind == "k4" else (x["pts_cam"], x["kpt_cam"])
         sp_args = None if kind == "k4" else (3, 0.1, 1.0)
-        rest = (x["f0"], x["f1"], x["mask"], x["weight"])
-        widths = tfused._check(lead, *rest, ws, torch.bfloat16, sp_args)
-        before = (tfused.geo_mlp_apply.launches, tfused.sp_geo_mlp_apply.launches)
-        try:
-            tfused._launch(tfused.geo_mlp_apply if kind == "k4" else tfused.sp_geo_mlp_apply,
-                           lead, *rest, ws, torch.bfloat16, sp_args, widths)
-        finally:
-            assert (tfused.geo_mlp_apply.launches, tfused.sp_geo_mlp_apply.launches) == before
+        widths = tfused._check(lead, x["f0"], x["f1"], x["mask"], x["weight"], ws,
+                               torch.bfloat16, sp_args)
+        Vx, Kx = lead[0].shape[0], (lead[1].shape[1] if sp_args else 0)
+        dsp = 7 * Kx if sp_args else lead[0].shape[-1]
+        return tfused.kernel_route(Vx, Kx, dsp, widths, torch.bfloat16, sp_args)
 
     five = {k: torch.cat([v, v[:2]]) for k, v in t.items() if k != "kpt_cam"}
     five["kpt_cam"] = torch.cat([t["kpt_cam"], t["kpt_cam"][:2]])
-    for kind in ("k4", "k5"):
-        with pytest.raises(ValueError, match="at most 4 views"):
-            kernel_route(kind, **five)
-    wide = torch.zeros((V, N, 400))                   # c0 = 400: W0 needs 145 KB alone
+    wide = torch.zeros((V, N, 400))     # c0 = 400: W0 needs 145 KB alone
     ws_wide = list(tfused.fold_weight_norm(case["tm"]))
     ws_wide[0] = torch.zeros((DIMS1[0] + 400, DIMS1[1]))
     for kind in ("k4", "k5"):
-        with pytest.raises(ValueError, match="do not fit in shared memory"):
-            kernel_route(kind, ws_wide, f0=wide)
+        assert route(kind) == "wgmma"
+        assert route(kind, **five) == "wmma"
+        assert route(kind, ws_wide, f0=wide) == "wmma"
     ws_narrow = list(tfused.fold_weight_norm(case["tm"]))
     ws_narrow[-2], ws_narrow[-1] = torch.zeros((64, 9)), torch.zeros(9)
-    with pytest.raises(ValueError, match="built for layer widths"):
-        kernel_route("k5", ws_narrow)
-    # the zju widths fit: 85,376 packed bf16 weights, 173,928 bytes with K5
+    assert route("k5", ws_narrow) == "wmma"
     for k_other in (8, 16):
-        with pytest.raises(ValueError, match="built for .keypoints, levels. = .24, 3."):
-            kernel_route("k5", kpt_cam=torch.cat([t["kpt_cam"]] * 2, 1)[:, :k_other],
-                         ws=_with_w0_rows(case, 7 * k_other))
-    with pytest.raises(ValueError, match="at most 256 layer-0 inputs"):
-        kernel_route("k4", _with_w0_rows(case, 200), sp=torch.zeros((V, N, 200)))
-    shapes = tfused._check_kernel(V, K, 168, (64, 8, *DIMS1[1:], *DIMS2[1:]), torch.bfloat16,
-                                  (3, 0.1, 1.0))
+        assert route("k5", kpt_cam=torch.cat([t["kpt_cam"]] * 2, 1)[:, :k_other],
+                     ws=_with_w0_rows(case, 7 * k_other)) == "wmma"
+    assert route("k4", _with_w0_rows(case, 200), sp=torch.zeros((V, N, 200))) == "wmma"
+    # the zju widths fit the wgmma kernel: 85,376 packed bf16 weights,
+    # 173,928 bytes with K5
+    shapes = tfused.packed_shapes((64, 8, *DIMS1[1:], *DIMS2[1:]), 168)
     assert sum(k * n for k, n in shapes) == 85_376
     assert tfused.smem_bytes(shapes, V, K, (3, 0.1, 1.0)) == 173_928 <= tfused.SMEM_BYTES
+
+
+ZJU_WIDTHS = (64, 8, 128, 128, 120, 64, 64, 64, 2)      # c0, c1, h1, h2, h3, dl, g1, g2, dout
+NARROW_WIDTHS = (64, 8, 96, 96, 80, 48, 48, 48, 2)
+
+
+@pytest.mark.parametrize("kind", ["k4", "k5"])
+@pytest.mark.parametrize("V_,K_,levels,widths,dtype,want", [
+    (3, 24, 3, ZJU_WIDTHS, "bfloat16", "wgmma"),          # the zju render and step
+    (2, 24, 3, ZJU_WIDTHS, "bfloat16", "wgmma"),
+    (3, 24, 3, ZJU_WIDTHS, "float32", "f32"),
+    (5, 16, 2, NARROW_WIDTHS, "bfloat16", "wmma"),        # non-zju widths, V = 5
+    (3, 16, 2, NARROW_WIDTHS, "bfloat16", "wmma"),
+    (5, 24, 3, ZJU_WIDTHS, "bfloat16", "wmma"),           # V = 5 at the zju widths
+    (3, 24, 3, (64, 0, *ZJU_WIDTHS[2:]), "bfloat16", "wmma"),   # no f1 channels
+    (3, 24, 3, (3000, 8, *ZJU_WIDTHS[2:]), "bfloat16", None),   # too wide for any tile
+    (3, 24, 3, (1500, 8, *ZJU_WIDTHS[2:]), "float32", None),
+    (64, 24, 3, ZJU_WIDTHS, "bfloat16", None),            # 64 views' latents
+])
+def test_kernel_route(kind, V_, K_, levels, widths, dtype, want):
+    """`kernel_route` picks the kernel from the shapes alone, before any
+    build or launch: wgmma for the zju widths in bf16, wmma for any other
+    bf16 shape whose 32-point tile fits in shared memory, f32 for f32
+    products; it refuses, with the size, only a tile that does not fit."""
+    sp_args = (levels, 0.1, 1.0) if kind == "k5" else None
+    K_ = K_ if kind == "k5" else 0
+    dsp = (1 + 2 * levels) * 24 if kind == "k4" else (1 + 2 * levels) * K_
+    args = (V_, K_, dsp, widths, getattr(torch, dtype), sp_args)
+    if want is None:
+        with pytest.raises(ValueError, match="tile does not fit in shared memory"):
+            tfused.kernel_route(*args)
+        return
+    assert tfused.kernel_route(*args) == want
+    # the route's scratch and shared memory are what the kernel lays out
+    if want == "wmma":
+        assert tfused.tile_smem_bytes(V_, K_, dsp, widths, sp_args, 2) <= tfused.SMEM_BYTES
+    if want != "f32":
+        shapes = tfused.packed_shapes(widths, dsp, want)
+        assert all(k % 16 == 0 and n % (8 if want == "wgmma" else 16) == 0 for k, n in shapes)
+
+
+def test_non_zju_width_render_with_flag():
+    """A bf16 model at widths the wgmma kernel refuses (5 source views, 16
+    keypoints, 2 encoding levels, layer widths 96, 96, 80, 48 | 48, 48)
+    renders a toy camera with use_pallas_geo_mlp: its queries' shapes take
+    the wmma route, and the flag-on render (on the CPU, the plain K5 behind
+    the Function) equals the flag-off render (the modules) within
+    tests/test_torch_render.py's bf16 bound, 1% of each output's scale
+    (measured 0.47%, rgb_fine)."""
+    import dataclasses
+
+    from keypointnerf_torch import models as tm
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.render import render_image
+
+    base = tm.KeypointNeRFConfig(n_coarse=4, n_fine=4, patch_h=4, patch_w=4,
+                                 geo_n_downsample=2, n_kpt=16, sp_level=2,
+                                 mlp_dims1=(80, 96, 96, 80, 48), mlp_dims2=(96, 48, 48, 2))
+    cfg = tm.strict_preset(base, cull_budget=0.6)
+    sample = make_sample(SyntheticConfig(image_size=32, n_views=6, n_kpt=16), seed=3)
+    sample["src_images"] = np.random.default_rng(7).uniform(
+        0, 1, sample["src_images"].shape).astype(np.float32)
+    vb = tm.ViewBatch.from_numpy(sample, device="cpu")
+    outs = {}
+    for flag in (False, True):
+        model = tm.KeypointNeRF(dataclasses.replace(cfg, use_pallas_geo_mlp=flag),
+                                device="cpu", seed=0)
+        model.mlp_geo.layers2.layers[-1].linear.bias.data[1] += 2.0   # radiance > 0
+        before = tfused.sp_geo_mlp_apply.launches
+        outs[flag] = render_image(model, vb, height=32, width=32, chunk=256)
+        assert tfused.sp_geo_mlp_apply.launches == before              # CPU: plain
+    ws = tfused.fold_weight_norm(model.mlp_geo)
+    outs_w = tuple(w.shape[1] for w in ws[0::2])
+    widths = (ws[0].shape[0] - 80, ws[4].shape[0] - outs_w[1], *outs_w)
+    assert widths[2:8] == (96, 96, 80, 48, 48, 48)
+    sp_args = (cfg.sp_level, cfg.sp_sigma, cfg.sp_scale)
+    assert tfused.kernel_route(5, 16, 80, widths, torch.bfloat16, sp_args) == "wmma"
+    assert float(outs[True]["cull_overflow"].max()) == 0.0
+    assert float(outs[False]["acc_fine"].max()) > 0.5
+    for k in ("rgb_fine", "depth_fine", "acc_fine", "rgb_coarse", "acc_coarse"):
+        a, b = outs[False][k].float(), outs[True][k].float()
+        assert bool(torch.isfinite(b).all()), k
+        assert float((a - b).abs().max() / a.abs().max()) <= 0.01, k
 
 
 @pytest.mark.cuda

@@ -106,6 +106,24 @@ def test_onehot_wrapper_checks_inputs():
     assert fn.launches == before
 
 
+@pytest.mark.parametrize("channels,esize,offset,want", [
+    (8, 2, 0, 16),      # the strict tex map in bf16: one 16-byte piece a row
+    (84, 2, 0, 8),      # the fused map in bf16: 168 bytes, 21 pieces of 8
+    (37, 2, 0, 2),      # odd rows: single channels
+    (5, 2, 0, 2),
+    (8, 4, 0, 16),
+    (84, 4, 0, 16),
+    (6, 4, 0, 8),
+    (37, 4, 0, 4),
+    (84, 2, 2, 2),      # a map one bf16 element past an aligned address
+    (8, 4, 8, 8),       # one that is only 8-byte aligned
+])
+def test_piece_bytes(channels, esize, offset, want):
+    """The lookup kernels' piece width: the widest of 16 and 8 bytes that
+    divides the row and every pointer, else one element."""
+    assert feat_sample.piece_bytes(channels * esize, esize, 1 << 20, (1 << 21) + offset) == want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_onehot_kernel_matches_plain_on_card(dtype):
