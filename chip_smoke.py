@@ -33,7 +33,11 @@ Phases (any failure exits nonzero):
      keypoints and 2 levels) on the wmma route, outputs and gradients; and
      both forms of `models/mlp.py:dot_f32` in bf16 (inference: torch.mm
      with out_dtype=float32; autograd: the f32 product of bf16-rounded
-     operands) against an f64 product, with their times;
+     operands) against an f64 product, with their times; K1 with f32 and
+     bf16 cotangents, timed at the fine and the coarse query's N with each
+     pass's device time; K6 beside the device time and a call's time of an
+     empty kernel, the floor under both, and again with falling cdfs (its
+     warp-reduction path);
   4. render: one 512² camera of the strict preset at full width (the zju
      architecture, bf16, cull budget 0.1875, seeded random weights) on the
      synthetic 512² scene with 3 source views; checks finite outputs,
@@ -57,7 +61,11 @@ Phases (any failure exits nonzero):
      random frozen VGG19, Adam 5e-4) on the synthetic 512² scene: 2
      warm-up and 5 timed steps, finite losses, K1 launched twice a step,
      parameters changed and finite; s/step, rays/s, peak memory and one
-     step's top CUDA kernels; then the same steps with
+     step's top CUDA kernels; K1 at the first step's own (xy, cotangent)
+     of both its calls (captured by wrapping the wrapper): how the points
+     fall on the map's cells, K1 against its plain version and its time
+     with the cotangent as the step hands it over (bf16) and widened, and
+     the two launches' sum; then the same steps with
      `use_pallas_geo_mlp` (K5 twice a step, its backward the recompute),
      the first step's loss terms and gradient norm held against the
      flag-off run's;
@@ -128,17 +136,20 @@ def kernel_device_ms(fn, name, iters=20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    # kernels only: an aten op's event (aten::grid_sampler_2d) carries its
-    # kernels' device time again
-    us = sum(device_us(e) for e in prof.key_averages()
-             if name in e.key and not e.key.startswith("aten::"))
-    if us <= 0:
-        raise SystemExit(f"the profile shows no device time for a kernel named {name}")
-    return us / 1e3 / iters
+    # a profile now and then comes back without the device's events: three
+    # tries before giving up
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        # kernels only: an aten op's event (aten::grid_sampler_2d) carries
+        # its kernels' device time again
+        us = sum(device_us(e) for e in prof.key_averages()
+                 if name in e.key and not e.key.startswith("aten::"))
+        if us > 0:
+            return us / 1e3 / iters
+    raise SystemExit(f"the profile shows no device time for a kernel named {name}")
 
 
 _START = time.perf_counter()
@@ -343,6 +354,20 @@ K6_BOUNDS = {"color": 1e-6, "depth": 5e-6, "acc": 1e-6, "sdf": 5e-6, "contrib": 
              "z_fine": 2.0, "z_fine_mean": 2e-5}
 
 
+def k6_held_depths(contrib, u):
+    """For rays whose cdf falls somewhere, {cdf_j <= u} is no interval, and
+    an edge within rounding of u (the kernel's cdf and the plain version's
+    sum in other orders) moves the depth across bins: the fine depths held
+    to K6_BOUNDS are those with every edge at least 1e-5 from u, by the
+    plain version's cdf. Returns that (R, F) mask and the falling rays'
+    count."""
+    cint = contrib[:, 1:-1] + 1e-5
+    cdf = torch.cumsum(cint / cint.sum(dim=-1, keepdim=True), dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)       # (R, S-1) edges
+    falls = int((torch.diff(cdf, dim=-1) < 0).any(dim=-1).sum())
+    return ((cdf[:, None, :] - u[:, :, None]).abs() >= 1e-5).all(dim=-1), falls
+
+
 def composite_inputs(rs, R, S, F, dev):
     """Ray-shaped K6 inputs: stratified depths in [2, 5] with jitter, random
     densities with 64 all-zero and 64 opaque rays, random sdf and colors,
@@ -361,6 +386,33 @@ def composite_inputs(rs, R, S, F, dev):
     return (f32(z), f32(alpha), f32(rs.normal(size=(R, S))), f32(rs.uniform(size=(R, S, 3))), u)
 
 
+# The floor under any short kernel's device time: an empty kernel, one warp,
+# launched by the same kind of ctypes call as the port's kernels.
+LAUNCH_FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void kpn_empty_kernel() {}
+extern "C" int kpn_empty_launch(void* s) {
+  kpn_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(s)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def launch_floor(dev) -> dict:
+    """Device time (profiled) and a call's time (events) of an empty kernel."""
+    import ctypes
+
+    fn = build_probe(LAUNCH_FLOOR_SRC).kpn_empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    index = dev.index or 0
+
+    def call():
+        if fn(torch._C._cuda_getCurrentRawStream(index)) != 0:
+            raise SystemExit("the empty kernel failed to launch")
+
+    return {"ms": kernel_device_ms(call, "kpn_empty_kernel"), "call_ms": cuda_ms(call, iters=100)}
+
+
 def check_composite_importance(dev) -> dict:
     """K6 against its plain version; returns its kernels-line entry."""
     from keypointnerf_torch.ops import composite_importance as k6
@@ -368,9 +420,15 @@ def check_composite_importance(dev) -> dict:
     rs = np.random.default_rng(6)
     names = ("color", "depth", "acc", "sdf", "contrib", "z_fine")
     entry = None
-    # the render's shape (one 2048-ray chunk, 64 + 64 samples) and a ragged R
-    for R, S, F in ((2048, 64, 64), (1237, 64, 64)):
+    # the render's shape (one 2048-ray chunk, 64 + 64 samples), a ragged R,
+    # and the render's shape with a negative density at every ray's second
+    # sample: its cdf falls there wherever light reaches it, and such rays
+    # take the kernel's warp reductions instead of its binary search
+    for R, S, F, falling in ((2048, 64, 64, False), (1237, 64, 64, False),
+                             (2048, 64, 64, True)):
         ins = composite_inputs(rs, R, S, F, dev)
+        if falling:
+            ins[1][:, 1] = -0.5
         got = k6.fused_composite_importance(*ins)
         ref = k6.composite_importance_plain(*ins)
         torch.cuda.synchronize()
@@ -381,18 +439,30 @@ def check_composite_importance(dev) -> dict:
             errs[name] = (a - b).abs().max().item()
         z_mid = 0.5 * (ins[0][:, 1:] + ins[0][:, :-1])
         widest = (z_mid[:, 1:] - z_mid[:, :-1]).amax(dim=-1, keepdim=True)
-        errs["z_fine_abs"] = errs["z_fine"]
-        errs["z_fine"] = ((ref[5] - got[5]).abs() / widest).max().item()
-        errs["z_fine_mean"] = (ref[5] - got[5]).abs().mean().item()
-        moved = int(((ref[5] - got[5]).abs() > 1e-4).sum())
+        dz = (ref[5] - got[5]).abs()
+        held, what = torch.ones_like(dz, dtype=torch.bool), ""
+        if falling:
+            held, falls = k6_held_depths(ref[4], ins[4])
+            what = (f" (falling cdfs: {falls} of {R} rays; {int((~held).sum())} fine depths "
+                    f"with an edge within 1e-5 of u not held)")
+        errs["z_fine_abs"] = dz[held].max().item()
+        errs["z_fine"] = (dz / widest)[held].max().item()
+        errs["z_fine_mean"] = dz[held].mean().item()
+        moved = int((dz > 1e-4).sum())
         ok = all(errs[k] <= K6_BOUNDS[k] for k in K6_BOUNDS)
-        print(f"K6 composite_importance R={R} S={S} F={F}: max abs errors "
+        print(f"K6 composite_importance R={R} S={S} F={F}{what}: max abs errors "
               f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (bounds {K6_BOUNDS}); "
               f"{moved} of {R * F} fine depths moved by > 1e-4 {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
             raise SystemExit("K6 disagrees with its plain version")
-        if R == 2048:
+        if falling:
+            falling_ms = kernel_device_ms(lambda: k6.fused_composite_importance(*ins),
+                                          "composite_importance_kernel")
+            entry["falling_ms"] = falling_ms
+            print(f"K6 timing with falling cdfs (R={R}, S={S}, F={F}): {falling_ms:.5f} ms of "
+                  f"device time", flush=True)
+        elif R == 2048:
             call_ms = cuda_ms(lambda: k6.fused_composite_importance(*ins), iters=100)
             ms = kernel_device_ms(lambda: k6.fused_composite_importance(*ins),
                                   "composite_importance_kernel")
@@ -403,6 +473,7 @@ def check_composite_importance(dev) -> dict:
             n_ops = R * (20 * S + F * (6 * (S - 1) + 10))
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+            floor = launch_floor(dev)
             entry = {
                 "name": "composite_importance", "route": "cuda",
                 "source": "keypointnerf_torch/csrc/composite_importance.cu",
@@ -411,13 +482,15 @@ def check_composite_importance(dev) -> dict:
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None, "call_ms": call_ms,
+                "library_ms": None, "call_ms": call_ms, "empty_launch_ms": floor["ms"],
             }
-            print(f"K6 timing (R={R}, S={S}, F={F}): kernel {ms:.4f} ms of device time "
-                  f"({call_ms:.4f} ms a call by CUDA events: the wrapper's host work), plain {plain_ms:.4f} "
-                  f"ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}: {n_bytes} bytes "
-                  f"= {t_bytes:.5f} ms, {n_ops} flops = {t_ops:.5f} ms); no single PyTorch "
-                  f"call computes this function (library_ms null)", flush=True)
+            print(f"K6 timing (R={R}, S={S}, F={F}): kernel {ms:.5f} ms of device time "
+                  f"({call_ms:.5f} ms a call by CUDA events: the wrapper's host work), plain "
+                  f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.5f} ms ({entry['bound_by']}: "
+                  f"{n_bytes} bytes = {t_bytes:.5f} ms, {n_ops} flops = {t_ops:.5f} ms); an "
+                  f"empty kernel, the floor under both: {floor['ms']:.5f} ms of device time, "
+                  f"{floor['call_ms']:.5f} ms a call; no single PyTorch call computes this "
+                  f"function (library_ms null)", flush=True)
     return entry
 
 
@@ -429,72 +502,186 @@ def _bf16_ulps_apart(a, b):
     return (a - b).abs() > ulp
 
 
+K1_PASSES = ("count_kernel", "scan_kernel", "scatter_kernel", "accumulate_kernel")
+
+
+def k1_cotangent_dtypes(k1):
+    """The cotangent dtypes the K1 wrapper takes: f32 and bf16 (an earlier
+    K1, timed beside this one in before-and-after runs, took f32 only)."""
+    xy, g = torch.zeros(1, 1, 2), torch.zeros(1, 1, 1, dtype=torch.bfloat16)
+    try:
+        k1._check(xy, g, 2, 2, torch.bfloat16)
+    except TypeError:
+        return (torch.float32,)
+    return (torch.float32, torch.bfloat16)
+
+
+def check_k1(k1, xy, g, H, W, dt, what) -> float:
+    """K1 against its plain version on (xy, g) with terms rounded to `dt`;
+    returns the max abs error, exits on disagreement."""
+    V, _, C = g.shape
+    got = k1.multiview_dmap_onehot(xy, g, H, W, dt)
+    ref = k1.onehot_dmap_plain(xy, g, H, W, dt)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(got).all())
+    err = (got - ref).abs().max().item() if finite else math.inf
+    tol = 1e-5 * ref.abs().max().item()
+    # as bf16 (the map dtype the gradient is cast to): at most one ulp
+    # apart, except near zero, where the f32 sum-order error (within `tol`)
+    # alone can exceed a bf16 ulp
+    gb, rb = got.to(torch.bfloat16), ref.to(torch.bfloat16)
+    apart = _bf16_ulps_apart(gb, rb)
+    near_zero = (gb.float() - rb.float()).abs() <= tol
+    differ = (gb != rb).float().mean().item()
+    ok = (err <= tol and not bool((apart & ~near_zero).any())
+          and got.shape == (V, H, W, C) and got.dtype == torch.float32)
+    print(f"K1 onehot_dmap {what} {V}x{H}x{W}x{C} terms {str(dt)[6:]} cotangent "
+          f"{str(g.dtype)[6:]} N={xy.shape[1]}: max_abs_err={err} (bound {tol}: 1e-5 of "
+          f"max|dmap|, sum order); as bf16 {differ:.6f} of entries differ, "
+          f"{int(apart.sum())} by more than 1 ulp (all within the f32 bound: "
+          f"{not bool((apart & ~near_zero).any())}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit(f"K1 disagrees with its plain version: {err}")
+    return err
+
+
+def k1_bound(V, N, H, W, C, g_esize) -> dict:
+    """K1's least time: each input read once (8 bytes of coordinates and the
+    cotangent row a point), the f32 dmap written once; per point ~14 flops
+    of coordinates and weights, per channel and corner xw*g, yw*t and the
+    add."""
+    n_bytes = V * N * (2 * 4 + C * g_esize) + V * H * W * C * 4
+    n_ops = V * N * (14 + 4 * 3 * C)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "n_bytes": n_bytes, "n_ops": n_ops}
+
+
+def time_k1(k1, xy, g, H, W, dt) -> dict:
+    """K1's time on (xy, g) by CUDA events (a call; every pass), with the
+    profiled device time of each pass beside."""
+    call = lambda: k1.multiview_dmap_onehot(xy, g, H, W, dt)  # noqa: E731
+    ms = cuda_ms(call, iters=20)
+    passes = {}
+    if hasattr(k1, "scratch_bytes"):               # the binned design's passes
+        passes = {name: kernel_device_ms(call, name, iters=5) for name in K1_PASSES}
+    return {"ms": ms, "passes": passes, **k1_bound(*g.shape[:2], H, W, g.shape[2],
+                                                   g.element_size())}
+
+
+def k1_yardsticks(k1, xy, g, H, W, dt, what):
+    """The plain version's time on (xy, g) and the yardstick's: torch's
+    grid_sample backward (bilinear, border, align_corners), map gradient
+    only, on an f32 map with the cotangent widened to f32."""
+    V, N, C = g.shape
+    plain_ms = cuda_ms(lambda: k1.onehot_dmap_plain(xy, g, H, W, dt), iters=5)
+    fmap = torch.zeros((V, C, H, W), device=xy.device)
+    grid = xy[:, None]                                              # (V, 1, N, 2)
+    g_nchw = g.float().permute(0, 2, 1)[:, :, None].contiguous()    # (V, C, 1, N)
+    library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g_nchw, fmap, grid, 0, 1, True, [True, False]), iters=20)
+    print(f"K1 yardsticks at {what} (N={N}, cotangent {str(g.dtype)[6:]}): plain "
+          f"{plain_ms:.4f} ms, grid_sampler_2d_backward (f32) {library_ms:.4f} ms", flush=True)
+    return plain_ms, library_ms
+
+
 def check_onehot_dmap(dev) -> dict:
-    """K1 against its plain version; returns its kernels-line entry."""
+    """K1 against its plain version at uniform points; returns its
+    kernels-line entry, timed here at uniform points (the main path's
+    numbers, at the training step's own points, replace them in phase 6)."""
     from keypointnerf_torch.ops import onehot_dmap as k1
 
     rs = np.random.default_rng(1)
-    entry = None
+    g_dtypes = k1_cotangent_dtypes(k1)
+    errs = []
     # main-path shapes: the fine query of a zju step (3 source views,
     # 4096 rays x 128 samples) on the 128² x 64 coarse map; an odd shape
     for (V, H, W, C, N) in ((3, 128, 128, 64, 4096 * 128), (3, 33, 17, 40, 5000)):
         xy = torch.as_tensor(rs.uniform(-1.3, 1.3, (V, N, 2)).astype(np.float32), device=dev)
         g = torch.as_tensor(rs.normal(size=(V, N, C)).astype(np.float32), device=dev)
         for dt in (torch.float32, torch.bfloat16):
-            got = k1.multiview_dmap_onehot(xy, g, H, W, dt)
-            ref = k1.onehot_dmap_plain(xy, g, H, W, dt)
-            torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            tol = 1e-5 * ref.abs().max().item()
-            # as bf16 (the map dtype the gradient is cast to): at most one
-            # ulp apart, except near zero, where the f32 sum-order error
-            # (within `tol`) alone can exceed a bf16 ulp
-            gb, rb = got.to(torch.bfloat16), ref.to(torch.bfloat16)
-            apart = _bf16_ulps_apart(gb, rb)
-            near_zero = (gb.float() - rb.float()).abs() <= tol
-            differ = (gb != rb).float().mean().item()
-            ok = (err <= tol and not bool((apart & ~near_zero).any())
-                  and got.shape == (V, H, W, C) and got.dtype == torch.float32)
-            print(f"K1 onehot_dmap {V}x{H}x{W}x{C} terms {str(dt)[6:]} N={N}: "
-                  f"max_abs_err={err} (bound {tol}: 1e-5 of max|dmap|, atomic sum order); "
-                  f"as bf16 {differ:.6f} of entries differ, {int(apart.sum())} by more than "
-                  f"1 ulp (all within the f32 bound: {not bool((apart & ~near_zero).any())}) "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise SystemExit(f"K1 disagrees with its plain version: {err}")
-            if (H, dt) == (128, torch.bfloat16):
-                ms = cuda_ms(lambda: k1.multiview_dmap_onehot(xy, g, H, W, dt), iters=20)
-                plain_ms = cuda_ms(lambda: k1.onehot_dmap_plain(xy, g, H, W, dt), iters=5)
-                # the yardstick: torch's grid_sample backward (bilinear,
-                # border, align_corners), map gradient only, on an f32 map
-                fmap = torch.zeros((V, C, H, W), device=dev)
-                grid = xy[:, None]                                  # (V, 1, N, 2)
-                g_nchw = g.permute(0, 2, 1)[:, :, None].contiguous()  # (V, C, 1, N)
-                library_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-                    g_nchw, fmap, grid, 0, 1, True, [True, False]), iters=20)
-                n_bytes = V * N * (2 * 4 + C * 4) + V * H * W * C * 4
-                # per point ~14 flops of coordinates and weights; per channel
-                # and corner xw*g, yw*t and the add
-                n_ops = V * N * (14 + 4 * 3 * C)
-                atomics = 4 * C * V * N
-                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-                t_ops = n_ops / F32_FLOPS_PER_S * 1e3
-                entry = {
-                    "name": "onehot_dmap", "route": "cuda",
-                    "source": "keypointnerf_torch/csrc/onehot_dmap.cu",
-                    "replaces": "keypointnerf_tpu/ops/pallas/onehot_dmap.py:109",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": library_ms,
-                }
-                print(f"K1 timing (bf16 terms, 3x128x128x64, N={N}): kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, grid_sampler_2d_backward (f32) "
-                      f"{library_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
-                      f"({entry['bound_by']}, {n_bytes} bytes, {n_ops} flops); "
-                      f"{atomics} f32 atomic adds ({atomics // 4} as float4), "
-                      f"{atomics / (ms * 1e-3):.4e} adds/s", flush=True)
-    return entry
+            for gt in g_dtypes:
+                errs.append(check_k1(k1, xy, g.to(gt), H, W, dt, "uniform"))
+    # timed with bf16 terms at the fine and the coarse query's N (4096 rays
+    # x 64 samples), f32 and bf16 cotangents
+    V, H, W, C = 3, 128, 128, 64
+    dt = torch.bfloat16
+    times = {}
+    for N in (4096 * 128, 4096 * 64):
+        xy = torch.as_tensor(rs.uniform(-1.3, 1.3, (V, N, 2)).astype(np.float32), device=dev)
+        g = torch.as_tensor(rs.normal(size=(V, N, C)).astype(np.float32), device=dev)
+        for gt in g_dtypes:
+            t = times[(N, str(gt)[6:])] = time_k1(k1, xy, g.to(gt), H, W, dt)
+            print(f"K1 timing, uniform points (bf16 terms, 3x128x128x64, N={N}, cotangent "
+                  f"{str(gt)[6:]}): {t['ms']:.4f} ms by events; passes (device) "
+                  f"{ {k: round(v, 5) for k, v in t['passes'].items()} }; bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['n_bytes']} bytes, "
+                  f"{t['n_ops']} flops)", flush=True)
+        if N == 4096 * 128:
+            plain_ms, library_ms = k1_yardsticks(k1, xy, g, H, W, dt, "uniform points")
+    fine = times[(4096 * 128, "float32")]
+    return {
+        "name": "onehot_dmap", "route": "cuda",
+        "source": "keypointnerf_torch/csrc/onehot_dmap.cu",
+        "replaces": "keypointnerf_tpu/ops/pallas/onehot_dmap.py:109",
+        "max_abs_err": max(errs), "ms": fine["ms"], "plain_ms": plain_ms,
+        "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+        "library_ms": library_ms,
+        "uniform_ms": {f"N={n} {d}": round(t["ms"], 5) for (n, d), t in times.items()},
+    }
+
+
+def cell_spread(xy, H, W) -> str:
+    """How a point set falls on the map's cells: distinct base cells, points
+    a touched cell (mean, largest), points clamped at the border."""
+    from keypointnerf_torch.ops.feat_sample import bilinear_coords
+
+    V, N, _ = xy.shape
+    x0, y0, _, _ = bilinear_coords(xy, H, W)
+    keys = (torch.arange(V, device=xy.device)[:, None] * H + y0) * W + x0
+    counts = torch.bincount(keys.reshape(-1), minlength=V * H * W)
+    touched = int((counts > 0).sum())
+    clamped = int(((xy < -1.0) | (xy > 1.0)).any(dim=-1).sum())
+    return (f"{touched} of {V * (H - 1) * (W - 1)} base cells touched, {V * N / touched:.1f} "
+            f"points a touched cell (largest {int(counts.max())}), {clamped} of {V * N} "
+            f"points clamped at the border")
+
+
+def k1_at_step_points(dev, captured) -> dict:
+    """K1 at the (xy, cotangent) of one zju step's two calls (coarse and
+    fine query): the points' spread on the map, K1 against its plain
+    version with the cotangent as the step hands it over and widened to
+    f32, and K1's time on both. Returns the fine query's kernels-line
+    numbers and the step's K1 time (the two launches summed)."""
+    from keypointnerf_torch.ops import onehot_dmap as k1
+
+    out, errs, step_ms = {}, [], 0.0
+    for (xy, g, H, W, dt), what in zip(sorted(captured, key=lambda c: c[0].shape[1]),
+                                       ("coarse", "fine")):
+        xy, g = xy.to(dev), g.to(dev)
+        V, N, C = g.shape
+        print(f"K1 at the zju step's {what} query (V={V}, N={N}, C={C}, {H}x{W} map, "
+              f"terms {str(dt)[6:]}, cotangent {str(g.dtype)[6:]}): {cell_spread(xy, H, W)}",
+              flush=True)
+        gs = [g] if g.dtype == torch.float32 else [g, g.float()]
+        for gg in gs:
+            errs.append(check_k1(k1, xy, gg, H, W, dt, f"step {what}"))
+            t = time_k1(k1, xy, gg, H, W, dt)
+            print(f"K1 timing at the step's {what} query, cotangent {str(gg.dtype)[6:]}: "
+                  f"{t['ms']:.4f} ms by events; passes (device) "
+                  f"{ {k: round(v, 5) for k, v in t['passes'].items()} }; bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['n_bytes']} bytes)", flush=True)
+            if gg is g:
+                step_ms += t["ms"]
+                if what == "fine":
+                    plain_ms, library_ms = k1_yardsticks(k1, xy, g, H, W, dt, "the step's points")
+                    out = {"ms": t["ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                           "plain_ms": plain_ms, "library_ms": library_ms}
+    print(f"K1 a zju training step (coarse + fine launch, as the step runs them): "
+          f"{step_ms:.4f} ms", flush=True)
+    return dict(out, max_abs_err=max(errs), step_ms=step_ms)
 
 
 GEO_DIMS1, GEO_DIMS2, GEO_SKIP = (168, 128, 128, 120, 64), (128, 64, 64, 2), (64, 8)
@@ -580,22 +767,30 @@ extern "C" int probe_launch(int f, const float* x, float* y, int threads, int re
 PROBE_FUNCS = ("softplus100", "expf", "sinf", "cosf")
 
 
-def library_function_times(dev) -> None:
-    """Prints the seconds per evaluation, at full occupancy, of the
-    library's softplus100, expf, sinf and cosf, and what they come to in
-    f32 issue slots."""
+def build_probe(source):
+    """nvcc a probe's source (a plain C interface) into build/kernels/,
+    named by its hash, and load it with ctypes."""
     import ctypes
     import hashlib
 
     from keypointnerf_torch.ops._build import BUILD_DIR, NVCC_FLAGS, _nvcc
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    digest = hashlib.sha1(PROBE_SRC.encode()).hexdigest()[:12]
+    digest = hashlib.sha1(source.encode()).hexdigest()[:12]
     src, lib_path = BUILD_DIR / f"probe-{digest}.cu", BUILD_DIR / f"libprobe-{digest}.so"
     if not lib_path.exists():
-        src.write_text(PROBE_SRC)
+        src.write_text(source)
         subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True)
-    lib = ctypes.CDLL(str(lib_path))
+    return ctypes.CDLL(str(lib_path))
+
+
+def library_function_times(dev) -> None:
+    """Prints the seconds per evaluation, at full occupancy, of the
+    library's softplus100, expf, sinf and cosf, and what they come to in
+    f32 issue slots."""
+    import ctypes
+
+    lib = build_probe(PROBE_SRC)
     lib.probe_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_void_p]
     threads, reps = 132 * 2048 * 4, 64
@@ -1568,10 +1763,11 @@ def zju_config(**overrides):
     return dataclasses.replace(KeypointNeRFConfig(**model), **overrides)
 
 
-def train_full_width(dev, fused=False, warmup=2, steps=5) -> dict:
+def train_full_width(dev, fused=False, warmup=2, steps=5, capture_k1=False) -> dict:
     """Optimizer steps of the zju recipe at full width, with
     use_pallas_geo_mlp when `fused`; returns the kernels' launch counts of
-    one step and the step's numbers."""
+    one step and the step's numbers, and with `capture_k1` the inputs of
+    the first step's K1 calls (host copies, as (xy, g, H, W, map dtype))."""
     from keypointnerf_torch.data import SyntheticConfig, make_sample
     from keypointnerf_torch.models import KeypointNeRF, VGG19Features, ViewBatch
     from keypointnerf_torch.ops import multiview_dmap_onehot as k1
@@ -1604,7 +1800,24 @@ def train_full_width(dev, fused=False, warmup=2, steps=5) -> dict:
     t0 = time.perf_counter()
     # the first step starts from the seeded weights and draws: its numbers
     # are comparable between the flag-off and the flag-on run
-    first = {k: v.item() for k, v in step().items()}
+    k1_inputs = []
+    if capture_k1:
+        # the backward looks K1 up in its module at each call
+        from keypointnerf_torch.ops import onehot_dmap as k1_module
+
+        def capturing(xy, g, H, W, map_dtype=torch.bfloat16):
+            # kept on the host, so the timed steps' peak memory is unchanged
+            k1_inputs.append((xy.cpu(), g.cpu(), H, W, map_dtype))
+            return k1(xy, g, H, W, map_dtype)
+
+        # the wrapper counts its launches on the module's name for it
+        capturing.launches = 0
+        k1_module.multiview_dmap_onehot = capturing
+    try:
+        first = {k: v.item() for k, v in step().items()}
+    finally:
+        if capture_k1:
+            k1_module.multiview_dmap_onehot = k1
     for _ in range(warmup - 1):
         step()
     torch.cuda.synchronize()
@@ -1651,7 +1864,8 @@ def train_full_width(dev, fused=False, warmup=2, steps=5) -> dict:
         raise SystemExit(f"geometry MLP parameters did not change: {stuck}")
     print("one step:", flush=True)
     device_ms = profile_kernels(step, 8 if fused else 15)
-    return dict(launches, s_per_step=seconds, peak_bytes=peak, device_ms=device_ms, first=first)
+    return dict(launches, s_per_step=seconds, peak_bytes=peak, device_ms=device_ms, first=first,
+                k1_inputs=k1_inputs)
 
 
 # The first full-width step with the flag on against the one with it off:
@@ -1827,8 +2041,18 @@ def main() -> int:
 
     if "train" in todo:
         phase("full-width zju training steps")
-        off = train_full_width(dev)
+        off = train_full_width(dev, capture_k1=True)
         launches["onehot_dmap"] = off["onehot_dmap"]
+        if len(off["k1_inputs"]) != 2:
+            raise SystemExit(f"captured {len(off['k1_inputs'])} K1 calls of a step, not 2")
+        phase("K1 at the training step's own points")
+        step_k1 = k1_at_step_points(dev, off.pop("k1_inputs"))
+        if "onehot_dmap" in entries:
+            # the kernels line times K1 where the main path runs it
+            entry = entries["onehot_dmap"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], step_k1["max_abs_err"])
+            entry.update({k: step_k1[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                                                  "library_ms", "step_ms")})
         phase("full-width zju training steps with use_pallas_geo_mlp (K5)")
         on = train_full_width(dev, fused=True)
         compare_first_steps(off["first"], on["first"])

@@ -80,6 +80,13 @@ def composite_importance_plain(z, alpha, sdf, rgb, u):
 
 
 def _check(z, alpha, sdf, rgb, u):
+    shape = z.shape
+    # the accepted case first, in few operations (a render calls this a chunk)
+    if (len(shape) == 2 and shape[1] >= 3 and alpha.shape == shape and sdf.shape == shape
+            and rgb.shape == (*shape, 3) and u.dim() == 2 and u.shape[0] == shape[0]
+            and z.dtype == alpha.dtype == sdf.dtype == rgb.dtype == u.dtype == torch.float32
+            and z.device == alpha.device == sdf.device == rgb.device == u.device):
+        return
     if z.dim() != 2 or u.dim() != 2 or rgb.shape != z.shape + (3,):
         raise ValueError(
             f"expected z (R, S), rgb (R, S, 3) and u (R, F), got {tuple(z.shape)}, "
@@ -114,22 +121,30 @@ def _launch(z, alpha, sdf, rgb, u):
         raise ValueError(f"the kernel takes at most {MAX_SAMPLES} samples a ray, got {S}")
     if not all(t.is_contiguous() for t in (z, alpha, sdf, rgb, u)):
         raise ValueError("the kernel takes contiguous inputs")
-    fn = _kernel()
-    # the six outputs as views of one allocation (a chunk's call is short:
-    # the host's work per launch counts)
-    buf = torch.empty(R * (6 + S + F), dtype=torch.float32, device=z.device)
-    color, depth, acc, sdf_out, contrib, z_fine = (
-        t.view(shape) for t, shape in zip(torch.split(buf, [3 * R, R, R, R, R * S, R * F]),
-                                          ((R, 3), (R,), (R,), (R,), (R, S), (R, F))))
-    ptrs = [t.data_ptr() for t in (z, alpha, sdf, rgb, u, color, depth, acc, sdf_out,
-                                   contrib, z_fine)]
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        err = fn(*ptrs, R, S, F, stream)
+    # A chunk's call is short, so its host work counts: the six outputs are
+    # views of one allocation, made by as_strided and passed as offsets of
+    # its base; the stream is the raw handle, and the device is switched
+    # only when it must be.
+    buf = torch.empty(R * (S + F + 6), dtype=torch.float32, device=z.device)
+    at = R * (S + F)                              # color, then depth, acc, sdf
+    view = buf.as_strided
+    outs = (view((R, 3), (3, 1), at), view((R,), (1,), at + 3 * R),
+            view((R,), (1,), at + 4 * R), view((R,), (1,), at + 5 * R),
+            view((R, S), (S, 1), 0), view((R, F), (F, 1), R * S))
+    base = buf.data_ptr()
+    args = (z.data_ptr(), alpha.data_ptr(), sdf.data_ptr(), rgb.data_ptr(), u.data_ptr(),
+            base + 4 * at, base + 4 * (at + 3 * R), base + 4 * (at + 4 * R),
+            base + 4 * (at + 5 * R), base, base + 4 * R * S, R, S, F)
+    index = z.get_device()
+    if index == torch.cuda.current_device():
+        err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"composite_importance kernel launch failed: CUDA error {err}")
     fused_composite_importance.launches += 1
-    return color, depth, acc, sdf_out, contrib, z_fine
+    return outs
 
 
 def fused_composite_importance(z, alpha, sdf, rgb, u):

@@ -154,9 +154,9 @@ class _BilinearSampleMM(torch.autograd.Function):
 
         feats, xy = ctx.saved_tensors
         V, H, W, C = feats.shape
-        gf = g.float()
         dmap = dxy = None
         if ctx.needs_input_grad[1]:
+            gf = g.float()
             xs = (xy[..., 0].float() + 1.0) * 0.5 * (W - 1)
             ys = (xy[..., 1].float() + 1.0) * 0.5 * (H - 1)
             in_x = (xs >= 0.0) & (xs <= W - 1.0)
@@ -171,7 +171,9 @@ class _BilinearSampleMM(torch.autograd.Function):
             dxy = torch.stack([dx, dy], dim=-1).to(xy.dtype)
         if ctx.needs_input_grad[0]:
             cg = C if ctx.grad_channels is None else min(ctx.grad_channels, C)
-            gc = gf[..., :cg].contiguous()
+            # the cotangent in its own dtype (bf16 for a bf16 map): both
+            # routes widen it exactly, so no f32 copy is made here
+            gc = g[..., :cg].contiguous()
             xyf = xy.float().contiguous()
             if ctx.pallas_dmap and cg >= DMAP_KERNEL_MIN_CHANNELS:
                 dmap = multiview_dmap_onehot(xyf, gc, H, W, feats.dtype)      # K1

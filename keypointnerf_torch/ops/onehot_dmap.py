@@ -16,14 +16,19 @@ The XLA scan that the JAX package uses for narrower maps rounds each term
 the same way (`feat_sample.py:_mm_bwd_impl`), so `onehot_dmap_plain` is
 also the port's counterpart of that scan.
 
+The cotangent may be f32 or bf16 (a bf16 lookup's, as autograd hands it
+over): widening bf16 to f32 is exact, so both give the same terms.
+
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/onehot_dmap.cu, one launch for all views, f32 atomics) or raises; on
-a CPU tensor it runs `onehot_dmap_plain`, the same terms summed with
+(csrc/onehot_dmap.cu: points binned by map cell, summed in registers a
+cell at a time, one C call for all views and passes) or raises; on a CPU
+tensor it runs `onehot_dmap_plain`, the same terms summed with
 `index_add_`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,9 +40,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def onehot_dmap_plain(xy, g, H, W, map_dtype=torch.bfloat16):
     """The plain PyTorch version of the kernel.
 
-    xy: (V, N, 2) f32 NDC; g: (V, N, C) f32 cotangent of the lookup;
-    `map_dtype` the dtype each term is rounded to (f32 or bf16). Returns
-    the (V, H, W, C) f32 map gradient.
+    xy: (V, N, 2) f32 NDC; g: (V, N, C) f32 or bf16 cotangent of the
+    lookup; `map_dtype` the dtype each term is rounded to (f32 or bf16).
+    Returns the (V, H, W, C) f32 map gradient.
     """
     V, N, C = g.shape
     x0, y0, wx, wy = bilinear_coords(xy.float(), H, W)
@@ -67,26 +72,54 @@ def _check(xy, g, H, W, map_dtype):
         raise ValueError(f"maps must be at least 2x2, got {H}x{W}")
     if map_dtype not in _DTYPE_CODE:
         raise TypeError(f"map dtype must be float32 or bfloat16, got {map_dtype}")
-    if xy.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"points and cotangent must be float32, got {xy.dtype}, {g.dtype}")
+    if xy.dtype != torch.float32 or g.dtype not in _DTYPE_CODE:
+        raise TypeError(f"points must be float32 and the cotangent float32 or bfloat16, "
+                        f"got {xy.dtype}, {g.dtype}")
     if xy.device != g.device:
         raise ValueError(f"points on {xy.device} but cotangent on {g.device}")
+
+
+def scratch_bytes(V, N, H, W):
+    """Bytes of scratch the kernel takes: a count a map cell (padded to a
+    multiple of 4), an index and a rank a point
+    (`kpn_onehot_dmap_scratch_bytes`)."""
+    return 4 * (-(-V * H * W // 4) * 4) + 8 * V * N
+
+
+@functools.cache
+def _kernel():
+    from ._build import load
+
+    fn = load("onehot_dmap").kpn_onehot_dmap
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _launch(xy, g, H, W, map_dtype):
     if not (xy.is_contiguous() and g.is_contiguous()):
         raise ValueError("the kernel takes contiguous points and cotangent")
-    from ._build import load
-
-    fn = load("onehot_dmap").kpn_onehot_dmap
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if xy.data_ptr() % 8:
+        xy = xy.clone()                       # the kernel reads a point as a float2
     V, N, C = g.shape
-    dmap = torch.zeros((V, H, W, C), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = fn(xy.data_ptr(), g.data_ptr(), dmap.data_ptr(),
-                 V, N, H, W, C, _DTYPE_CODE[map_dtype], stream)
+    index = g.get_device()
+    # one C call zeroes the output and the histogram and launches every pass
+    dmap = torch.empty((V, H, W, C), dtype=torch.float32, device=g.device)
+    size = scratch_bytes(V, N, H, W)
+    scratch = torch.empty(size, dtype=torch.uint8, device=g.device)
+
+    def launch():
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        return _kernel()(xy.data_ptr(), g.data_ptr(), dmap.data_ptr(), scratch.data_ptr(),
+                         size, V, N, H, W, C, _DTYPE_CODE[map_dtype], _DTYPE_CODE[g.dtype],
+                         stream)
+
+    if index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(index):
+            err = launch()
     if err != 0:
         raise RuntimeError(f"onehot_dmap kernel launch failed: CUDA error {err}")
     multiview_dmap_onehot.launches += 1
@@ -96,8 +129,8 @@ def _launch(xy, g, H, W, map_dtype):
 def multiview_dmap_onehot(xy, g, H, W, map_dtype=torch.bfloat16):
     """Map gradient of the lookup of V (H, W, C) maps at per-view points.
 
-    xy: (V, N, 2) f32 NDC; g: (V, N, C) f32. Returns (V, H, W, C) f32 (the
-    caller casts to the map dtype). CUDA tensors go to the kernel (counted
+    xy: (V, N, 2) f32 NDC; g: (V, N, C) f32 or bf16. Returns (V, H, W, C)
+    f32 (the caller casts to the map dtype). CUDA tensors go to the kernel (counted
     in `multiview_dmap_onehot.launches`), CPU tensors to the plain version.
     """
     _check(xy, g, H, W, map_dtype)

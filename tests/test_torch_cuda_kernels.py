@@ -1,6 +1,7 @@
-"""The port's lookup kernels (K2, K3) and the fused geometry MLP's bf16
-routes (K4 / K5, wgmma and wmma) against their plain versions on a CUDA
-card. Every test here needs the card (marker `cuda`) and skips without one.
+"""The port's lookup kernels (K2, K3), the fused geometry MLP's bf16
+routes (K4 / K5, wgmma and wmma), the map gradient K1 and the fused
+composite K6 against their plain versions on a CUDA card. Every test here
+needs the card (marker `cuda`) and skips without one.
 
 This file imports nothing of JAX or Flax, so it runs where the JAX
 package's test dependencies are missing:
@@ -11,7 +12,9 @@ Bounds are chip_smoke.py's: K2 bit-equal in bf16 and within 1e-6 in f32
 (the TPU kernel's rounding order kept per channel), K3 bit-equal in both
 (each lerp rounded as the plain version rounds it); K4 / K5 with bf16
 products within 5e-3 (worst) and 1e-6 (mean) of each output's largest
-entry, `valid` exact. The channel counts reach every piece width of the
+entry, `valid` exact; K1 within 1e-5 of max|dmap| and, as bf16, one ulp
+except near zero; K6 1e-6 (depth and sdf 5e-6), z_fine within two bins.
+The channel counts reach every piece width of the
 lookup kernels (`feat_sample.piece_bytes`): 16 bytes (8 bf16, 84 or 8
 f32), 8 bytes (84 bf16, 6 f32) and single channels (37, 5); a map offset
 by one element takes the single-channel variant too, and points offset by
@@ -146,3 +149,135 @@ def test_geo_mlp_bf16_route_matches_plain(dev, config, kind, N):
         scale = float(a.abs().max())
         assert float((a - b).abs().max()) <= 5e-3 * scale, name
         assert float((a - b).abs().mean()) <= 1e-6 * scale, name
+
+
+# ------------------------------------------------------------------ K1
+def _bf16_ulps_apart(a, b):
+    """Per entry, whether a and b lie more than one bf16 ulp apart."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))
+    return (a - b).abs() > torch.ldexp(torch.ones_like(a), e - 8)   # 8 significand bits
+
+
+def _dmap_points(rs, V, N, spread):
+    """(V, N, 2) NDC points. "uniform": over [-1.3, 1.3]², a sixth clamped.
+    "clustered": as a training patch's samples fall, most in four tight
+    clusters a view (thousands of points a cell), a tenth far outside the
+    map (clamped to its border rows and columns) and some exactly on it."""
+    if spread == "uniform":
+        return rs.uniform(-1.3, 1.3, (V, N, 2))
+    centers = rs.uniform(-0.9, 0.9, (V, 4, 2))
+    xy = centers[np.arange(V)[:, None], rs.integers(0, 4, (V, N))]
+    xy = xy + rs.normal(scale=0.004, size=(V, N, 2))
+    out = rs.random((V, N)) < 0.1
+    xy[out] = rs.choice([-1.0, 1.0], size=(int(out.sum()), 2)) * rs.uniform(1.0, 2.0, (int(out.sum()), 2))
+    edge = rs.random((V, N)) < 0.02
+    xy[edge, rs.integers(0, 2)] = 1.0
+    return xy
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 64, 50_000), (33, 17, 40, 5_000)],
+                         ids=["128x128x64", "33x17x40"])
+@pytest.mark.parametrize("spread", ["uniform", "clustered"])
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dmap_kernel_matches_plain_on_card(dev, dtype, g_dtype, spread, shape):
+    """K1 against its plain version, chip_smoke.py's bounds: within 1e-5 of
+    max|dmap| (the kernel sums each cell's terms in another order), and as
+    bf16 at most one ulp apart except where that difference is itself
+    within the f32 bound (near zero)."""
+    from keypointnerf_torch.ops import onehot_dmap as k1
+
+    H, W, C, N = shape
+    rs = np.random.default_rng(N + C)
+    xy = torch.as_tensor(_dmap_points(rs, 3, N, spread).astype(np.float32), device=dev)
+    g = torch.as_tensor(rs.normal(size=(3, N, C)).astype(np.float32), device=dev)
+    g = g.to(getattr(torch, g_dtype))
+    dt = getattr(torch, dtype)
+    before = k1.multiview_dmap_onehot.launches
+    got = k1.multiview_dmap_onehot(xy, g, H, W, dt)
+    ref = k1.onehot_dmap_plain(xy, g, H, W, dt)
+    torch.cuda.synchronize()
+    assert k1.multiview_dmap_onehot.launches == before + 1
+    assert got.shape == (3, H, W, C) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    tol = 1e-5 * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= tol
+    gb, rb = got.to(torch.bfloat16), ref.to(torch.bfloat16)
+    near_zero = (gb.float() - rb.float()).abs() <= tol
+    assert not bool((_bf16_ulps_apart(gb, rb) & ~near_zero).any())
+
+
+# ------------------------------------------------------------------ K6
+K6_NAMES = ("color", "depth", "acc", "sdf", "contrib", "z_fine")
+
+
+def _composite_inputs(rs, R, S, F, kind):
+    """chip_smoke.py's ray-shaped K6 inputs (stratified jittered depths in
+    [2, 5], or in [-5, -2] for kind "negative"; 64 all-zero and 64 opaque
+    rays) with u = linspace(0, 1, F) as the render passes it. Kind
+    "falling": a negative density at the second sample of every ray, so
+    the cdf falls there wherever light reaches it (those rays take the
+    kernel's warp reductions, the others its binary search)."""
+    near = rs.uniform(2.0, 3.0, (R, 1)) - (7.0 if kind == "negative" else 0.0)
+    far = near + rs.uniform(1.0, 2.0, (R, 1))
+    z = near + (far - near) * (np.arange(S) + rs.uniform(0.0, 0.9, (R, S))) / S
+    alpha = np.maximum(rs.normal(size=(R, S)), 0.0) * rs.uniform(0.0, 20.0, (R, 1))
+    alpha[:64] = 0.0
+    alpha[64:128] = 1e3
+    if kind == "falling":
+        alpha[:, 1] = -0.5
+    u = np.broadcast_to(np.linspace(0.0, 1.0, F), (R, F))
+    return [np.asarray(a, np.float32) for a in
+            (z, alpha, rs.normal(size=(R, S)), rs.uniform(size=(R, S, 3)), u)]
+
+
+@pytest.mark.parametrize("R,S,F,kind,offset", [
+    (2048, 64, 64, "", False), (1237, 64, 64, "", False),
+    (2048, 64, 64, "negative", False), (1237, 3, 16, "", False),
+    (512, 256, 64, "", False), (777, 33, 70, "negative", False),
+    (640, 100, 48, "", False), (640, 96, 48, "", False),
+    (1237, 64, 64, "", True), (2048, 64, 64, "falling", False),
+    (640, 100, 48, "falling", False)])
+def test_k6_kernel_matches_plain_on_card(dev, R, S, F, kind, offset):
+    """K6 against its plain version at chip_smoke.py's bounds: the sums'
+    order (1e-6, depth and sdf 5e-6); z_fine within two of its ray's widest
+    bins, mean 2e-5. Covers the render's shape, a ragged R, negative
+    depths, 3 and 256 samples (1 and 8 a lane), odd S and lanes left
+    without samples, F not a multiple of 32, inputs one float off an
+    aligned address (no vector loads), and falling cdfs (the warp
+    reductions beside the binary search)."""
+    from keypointnerf_torch.ops import composite_importance as k6
+
+    rs = np.random.default_rng(R + S)
+    ins = []
+    for a in _composite_inputs(rs, R, S, F, kind):
+        t = torch.empty(a.size + 1, device=dev)
+        t = t[1:] if offset else t[:-1]
+        ins.append(t.view(a.shape).copy_(torch.from_numpy(a)))
+    fn = k6.fused_composite_importance
+    before = fn.launches
+    got = fn(*ins)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = k6.composite_importance_plain(*ins)
+    for name, a, b in zip(K6_NAMES[:5], ref, got):
+        assert a.shape == b.shape and bool(torch.isfinite(b).all()), name
+        tol = 5e-6 if name in ("depth", "sdf") else 1e-6
+        assert (a - b).abs().max().item() <= tol, name
+    z_mid = 0.5 * (ins[0][:, 1:] + ins[0][:, :-1])
+    widest = (z_mid[:, 1:] - z_mid[:, :-1]).amax(dim=-1, keepdim=True)
+    dz = (ref[5] - got[5]).abs()
+    assert bool(torch.isfinite(got[5]).all())
+    held = torch.ones_like(dz, dtype=torch.bool)
+    if kind == "falling":
+        # where the cdf falls, {cdf <= u} is no interval, and an edge within
+        # rounding of u moves the depth across bins: held where every edge
+        # (the plain version's cdf) is at least 1e-5 from u
+        cint = ref[4][:, 1:-1] + 1e-5
+        cdf = torch.cumsum(cint / cint.sum(dim=-1, keepdim=True), dim=-1)
+        cdf = torch.cat([torch.zeros_like(cdf[:, :1]), cdf], dim=-1)
+        assert bool((torch.diff(cdf, dim=-1) < 0).any(dim=-1).float().mean() > 0.5)
+        held = ((cdf[:, None, :] - ins[4][:, :, None]).abs() >= 1e-5).all(dim=-1)
+        assert held.float().mean().item() > 0.9
+    assert (dz / widest)[held].max().item() <= 2.0 and dz[held].mean().item() <= 2e-5

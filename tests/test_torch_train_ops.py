@@ -76,22 +76,78 @@ def test_dmap_wrapper_checks_inputs():
         multiview_dmap_onehot(xy, g, 4, 4, torch.float16)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_dmap_kernel_matches_plain_on_card(dtype):
-    """K1 on the card against its plain version: f32 atomics sum in
-    another order than index_add_, so 1e-5 of the dmap's scale."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    for H, W, C, N in ((128, 128, 64, 50_000), (33, 17, 40, 5_000)):
-        xy, g = _dmap_case(H, W, C, N)
-        xy_c = _t(xy)[None].repeat(3, 1, 1).cuda()
-        g_c = _t(g)[None].repeat(3, 1, 1).cuda()
-        got = multiview_dmap_onehot(xy_c, g_c, H, W, dtype)
-        ref = onehot_dmap_plain(xy_c, g_c, H, W, dtype)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        assert err <= 1e-5 * ref.abs().max().item(), err
+def _clustered_case(H, W, C, N, seed):
+    """A training patch's kind of points: most in three tight clusters
+    (hundreds a map cell), a tenth far outside the map (clamped to its
+    border) and some exactly on it."""
+    rs = np.random.default_rng(seed)
+    xy = rs.uniform(-0.9, 0.9, (3, 2))[rs.integers(0, 3, N)]
+    xy = xy + rs.normal(scale=0.01, size=(N, 2))
+    out = rs.random(N) < 0.1
+    xy[out] = rs.choice([-1.0, 1.0], size=(int(out.sum()), 2)) * rs.uniform(1.0, 2.0, (int(out.sum()), 2))
+    xy[rs.random(N) < 0.02, 1] = 1.0
+    return xy.astype(np.float32), rs.normal(size=(N, C)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dmap_plain_matches_pallas_clustered(dtype):
+    """K1's plain version against `bilinear_dmap_onehot(interpret=True)` at
+    clustered points with border clamps (the sums of a hot cell run long)."""
+    H, W, C = 16, 16, 64
+    xy, g = _clustered_case(H, W, C, 2000, seed=11)
+    ref = np.asarray(bilinear_dmap_onehot(jnp.asarray(xy), jnp.asarray(g), H, W,
+                                          map_dtype=getattr(jnp, dtype), interpret=True))
+    got = onehot_dmap_plain(_t(xy)[None], _t(g)[None], H, W, getattr(torch, dtype))[0]
+    tol = F32_TOL if dtype == "float32" else dict(atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref, **tol)
+
+
+def test_dmap_plain_takes_bf16_cotangent_exactly():
+    """A bf16 cotangent gives the same map gradient, bit for bit, as the
+    same cotangent widened to f32 (the widening is exact), for both map
+    dtypes; the CPU wrapper takes it too."""
+    xy, g = _clustered_case(16, 16, 64, 2000, seed=12)
+    xy, gb = _t(xy)[None], _t(g)[None].bfloat16()
+    for dt in (torch.float32, torch.bfloat16):
+        wide = onehot_dmap_plain(xy, gb.float(), 16, 16, dt)
+        assert torch.equal(onehot_dmap_plain(xy, gb, 16, 16, dt), wide)
+        assert torch.equal(multiview_dmap_onehot(xy, gb, 16, 16, dt), wide)
+
+
+def test_bilinear_sample_mm_bf16_cotangent():
+    """The Function on a bf16 64-channel map (the route to K1) with the bf16
+    cotangent a bf16 lookup hands back, against `bilinear_sample_mm_partial`
+    with the Pallas kernel in interpret mode: dmap (bf16) within one bf16
+    ulp or the f32 sum-order bound; dxy within 2e-5
+    of its scale (a 64-channel dot in another order); and the map gradient
+    equals the plain version's on the widened cotangent."""
+    rs = np.random.default_rng(6)
+    V, H, W, C, N = 2, 16, 12, 64, 600
+    feats = jnp.asarray(rs.normal(size=(V, H, W, C)).astype(np.float32)).astype(jnp.bfloat16)
+    xy = rs.uniform(-1.2, 1.2, (V, N, 2)).astype(np.float32)
+    g = jnp.asarray(rs.normal(size=(V, N, C)).astype(np.float32)).astype(jnp.bfloat16)
+
+    def one(f, x, gg):
+        out = bilinear_sample_mm_partial(f, x, None, "interpret")
+        return jnp.sum(out.astype(jnp.float32) * gg.astype(jnp.float32))
+
+    grad = jax.grad(one, argnums=(0, 1))
+    refs = [grad(feats[v], jnp.asarray(xy[v]), g[v]) for v in range(V)]
+    ft = _t(feats.astype(jnp.float32)).bfloat16().requires_grad_(True)
+    xt = _t(xy).requires_grad_(True)
+    gt = _t(g.astype(jnp.float32)).bfloat16()
+    out = multiview_bilinear_sample_mm(ft, xt, None, True)
+    out.backward(gt)
+    assert ft.grad.dtype == torch.bfloat16
+    wide = onehot_dmap_plain(xt.detach(), gt.float(), H, W, torch.bfloat16).bfloat16()
+    assert torch.equal(ft.grad, wide)
+    for v in range(V):
+        # dxy: a 64-channel dot summed in another order, 2e-5 of its scale
+        assert _rel_err(xt.grad[v].numpy(), refs[v][1]) <= 2e-5
+        a = ft.grad[v].float().numpy()
+        b = np.asarray(refs[v][0].astype(jnp.float32))
+        ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(a), np.abs(b)))[1] - 8)
+        assert (np.abs(a - b) <= ulp + 1e-5 * np.abs(b).max()).all()
 
 
 # ------------------------------------------------------ the autograd Function
