@@ -53,12 +53,33 @@ Phases (any failure exits nonzero):
      against composite + importance_z); and a 128² camera of a model at
      those non-zju widths with `use_pallas_geo_mlp` (K5 on the wmma
      route, every query) against the flag-off render;
-  5. agreement: toy-size f32 renders on the card against the same renders
+  5. fast (needs render): the model of configs/zju_fast.json, built by the
+     port's load_config / get_model (its model section checked equal to
+     fast_preset(), its seeded weights to the strict camera's), renders the
+     same 512² camera at chunk 8192: the fused map halved to 3 x 256² x 84
+     bf16, finite outputs, cull_overflow == 0, none of K1-K6 launched,
+     each query's points (the fine cut's int(8192 * 0.75) rays x 64) and
+     fused-map lookup points (the lerp's 33 anchors of 64 samples)
+     counted, culled == unculled bit for bit with the top-k cuts off;
+     rays/s and kernel time beside the strict camera's, the fast image's
+     deviation from the strict one (a record), the bf16 render held against
+     the same preset and weights in f32 by mean deviation and share off
+     (FAST_BF16_BOUNDS), its top CUDA kernels; then render_cameras_scanned
+     over 4 cameras of the bench orbit at 256² (finite, worst overflow 0;
+     each frame equal to render_image of its camera, which checks the
+     frames' order only: the scanned renderer loops over render_image) and
+     run_eval on 2 synthetic 512² samples with auto_cull_budget=1 (finite
+     PSNR / SSIM, PNGs under build/chip_smoke_eval/);
+  6. agreement: toy-size f32 renders on the card against the same renders
      on the CPU (the paths the CPU tests hold against the JAX package),
-     with each kernel's flag off and on;
-  6. train: optimizer steps of the configs/zju.json recipe at full width
-     (bf16, 64x64 patch, 64+64 samples, matmul VJP with K1, VGG loss on
-     random frozen VGG19, Adam 5e-4) on the synthetic 512² scene: 2
+     with each kernel's flag off and on, and the toy fast render (cull,
+     coarse 0.5, fine 0.75): the rays each program's cull and cuts marched
+     are recorded, at most 2 rays may differ in that status, every other
+     ray is held at 1e-4 of each output's max as the strict renders are;
+  7. train: optimizer steps of the configs/zju.json recipe at full width,
+     read by the port's load_config (bf16, 64x64 patch, 64+64 samples,
+     matmul VJP with K1, VGG loss on random frozen VGG19, Adam 5e-4) on
+     the synthetic 512² scene: 2
      warm-up and 5 timed steps, finite losses, K1 launched twice a step,
      parameters changed and finite; s/step, rays/s, peak memory and one
      step's top CUDA kernels; K1 at the first step's own (xy, cotangent)
@@ -69,10 +90,10 @@ Phases (any failure exits nonzero):
      `use_pallas_geo_mlp` (K5 twice a step, its backward the recompute),
      the first step's loss terms and gradient norm held against the
      flag-off run's;
-  7. train agreement: one toy f32 step on the card against the same step
+  8. train agreement: one toy f32 step on the card against the same step
      on the CPU (loss, every gradient, the updated parameters), with
      `use_pallas_geo_mlp` off and on;
-  8. prints the kernels line, the card line and, last, the result line.
+  9. prints the kernels line, the card line and, last, the result line.
 
 `--phases kernels,render,...` runs a subset while developing (the result
 line is printed only by a full run).
@@ -80,6 +101,7 @@ line is printed only by a full run).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -105,6 +127,8 @@ BF16_FLOPS_PER_S = 989e12
 F32_ISSUE_PER_S = F32_FLOPS_PER_S / 2
 MUFU_PER_S = 132 * 16 * 1.98e9
 ZJU_CONFIG = Path(__file__).resolve().parent / "configs" / "zju.json"
+FAST_CONFIG = ZJU_CONFIG.with_name("zju_fast.json")
+EVAL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_eval"
 
 
 def card_line() -> str:
@@ -1395,9 +1419,9 @@ def render_full_width(dev):
 
     # where the render's device time goes
     print(f"one render, flag off (wall {seconds * 1e3:.3f} ms):", flush=True)
-    profile_kernels(render, 12)
+    device_ms = profile_kernels(render, 12)
     return launches, dict(cfg=cfg, model=model, vb=vb, out=out, seconds=seconds,
-                          size=size, chunk=chunk, expected=expected)
+                          device_ms=device_ms, size=size, chunk=chunk, expected=expected)
 
 
 # The flag-on render against the flag-off one. The two bf16 programs round
@@ -1723,6 +1747,329 @@ def render_composite(dev, ctx, fused_cfg) -> dict:
     return on
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by its kernels-line name (each has
+    a `.launches` count)."""
+    from keypointnerf_torch import ops
+
+    return {"onehot_dmap": ops.multiview_dmap_onehot,
+            "onehot_bilinear": ops.multiview_onehot_bilinear_sample,
+            "fused_geo_mlp": ops.geo_mlp_apply,
+            "sp_fused_geo_mlp": ops.sp_geo_mlp_apply,
+            "dma_gather": ops.multiview_bilinear_sample_dma,
+            "composite_importance": ops.fused_composite_importance}
+
+
+@contextlib.contextmanager
+def counted_queries(model):
+    """Record each `query_points` call of `model` as {"points", "samples",
+    "lookups"}, "lookups" the point count of every fused-map lookup the
+    query makes (`models.keypoint_nerf.multiview_bilinear_sample`)."""
+    import keypointnerf_torch.models.keypoint_nerf as knerf
+
+    calls, lookup, query = [], knerf.multiview_bilinear_sample, model.query_points
+
+    def counted_lookup(fmap, xy, *args, **kwargs):
+        if calls and calls[-1]["open"]:
+            calls[-1]["lookups"].append(xy.shape[1])
+        return lookup(fmap, xy, *args, **kwargs)
+
+    def counted_query(pts, view_dirs, feats, vb, n_samples, **kwargs):
+        calls.append({"points": pts.shape[0], "samples": n_samples, "lookups": [],
+                      "open": True})
+        try:
+            return query(pts, view_dirs, feats, vb, n_samples, **kwargs)
+        finally:
+            calls[-1]["open"] = False
+
+    knerf.multiview_bilinear_sample = counted_lookup
+    model.query_points = counted_query
+    try:
+        yield calls
+    finally:
+        knerf.multiview_bilinear_sample = lookup
+        del model.query_points
+
+
+# The bf16 fast render against the same preset in f32, held as the flag-on
+# renders are (compare_renders). Besides the bf16 rounding of every layer,
+# the lerp `left + t * (right - left)` rounds at each step in bf16, and the
+# fine cut ranks rays by a coarse opacity that the rounding moves, so rays
+# at its boundary switch whole between marched and kept-coarse. (mean,
+# share), measured and doubled: 1.705e-4 (acc_fine), 6.47e-4 (rgb_fine).
+FAST_BF16_BOUNDS = (3.5e-4, 1.3e-3)
+
+
+def render_fast(dev, strict) -> dict:
+    """One 512² camera of the fast preset built from configs/zju_fast.json
+    (the strict camera's scene, weights and image in `strict`); returns
+    what the orbit and the evaluation reuse."""
+    from keypointnerf_torch.models import fast_preset
+    from keypointnerf_torch.render import render_image
+    from keypointnerf_torch.utils import get_model, load_config
+
+    exp = load_config(str(FAST_CONFIG))
+    if exp.model != fast_preset():
+        raise SystemExit("configs/zju_fast.json's model section is not fast_preset()")
+    cfg, size, chunk, vb = exp.model, strict["size"], 8192, strict["vb"]
+    model = get_model(exp, device=dev)
+    model.mlp_geo.layers2.layers[-1].linear.bias.data[1] += 2.0     # as the strict camera's
+    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 strict["model"].state_dict().values()))
+    print(f"config {FAST_CONFIG.name}: model == fast_preset(); weights equal to the strict "
+          f"camera's: {same}", flush=True)
+    if not same:
+        raise SystemExit("the fast model's seeded weights differ from the strict model's")
+    feats = model.encode(vb.src_images, vb.src_masks)
+    fused = feats["fused"]
+    print(f"fused map {tuple(fused.shape)} {fused.dtype}", flush=True)
+    if tuple(fused.shape) != (3, size // 2, size // 2, 84) or fused.dtype != torch.bfloat16:
+        raise SystemExit("the fast preset's fused map is not the halved 84-channel bf16 map")
+
+    render = lambda: render_image(model, vb, height=size, width=size, chunk=chunk)  # noqa: E731
+    render()                                              # warm-up
+    torch.cuda.synchronize()
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0                                    # counts of this render only
+    t0 = time.perf_counter()
+    out = render()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = {k: w.launches for k, w in wrappers.items() if w.launches}
+    n_rays = size * size
+    for k, v in out.items():
+        if not bool(torch.isfinite(v).all()):
+            raise SystemExit(f"fast render output {k} is not finite")
+    overflow = float(out["cull_overflow"].max())
+    marched = -int(-n_rays * cfg.cull_empty_rays_ratio // 1)
+    n_chunks = math.ceil(marched / chunk)
+    print(f"render 512² fast bf16 (chunk {chunk}): {seconds:.4f} s, {n_rays / seconds:.1f} "
+          f"rays/s; strict camera of this run {strict['seconds']:.4f} s, "
+          f"{n_rays / strict['seconds']:.1f} rays/s; cull_overflow={overflow}; marched {marched} "
+          f"rays in {n_chunks} chunks; kernel launches {launched or 'none'}", flush=True)
+    if overflow != 0.0:
+        raise SystemExit("empty-ray cull budget exceeded on the fast render")
+    if launched:
+        raise SystemExit(f"the fast path launched kernels it must not: {launched}")
+
+    # the fine cut marches int(chunk * 0.75) rays of each chunk, and every
+    # query looks the fused map up at the 33 anchors of its 64 samples
+    with torch.no_grad(), counted_queries(model) as calls:
+        render_image(model, vb, height=size, width=size, chunk=chunk, feats=feats)
+    anchors = lambda S: len(range(0, S, cfg.gather_lerp_stride)) + 1   # noqa: E731
+    n_fine = int(chunk * cfg.fine_topk_ratio)
+    want = [(chunk * cfg.n_coarse, cfg.n_coarse, [chunk * anchors(cfg.n_coarse)]),
+            (n_fine * cfg.n_fine, cfg.n_fine, [n_fine * anchors(cfg.n_fine)])] * n_chunks
+    got = [(c["points"], c["samples"], c["lookups"]) for c in calls]
+    print(f"queries of the fast render: {len(got)} (expected {len(want)}); per chunk "
+          f"{got[:2]} (points, samples per ray, fused-map lookup points; expected "
+          f"{want[:2]})", flush=True)
+    if got != want:
+        raise SystemExit("the fast render's queries are not the fine cut's and the lerp's")
+
+    # the fast image against the strict camera's: a record, not a gate
+    diff = (out["rgb_fine"].float() - strict["out"]["rgb_fine"].float()).abs()
+    print(f"fast vs strict image (rgb_fine): mean |diff| {diff.mean().item():.6f}, "
+          f"{(diff > 0.01).any(-1).float().mean().item():.6f} of pixels off by > 0.01 in some "
+          f"channel, max {diff.max().item():.4f}", flush=True)
+
+    # the bf16 fast render against the same preset and weights in f32
+    ref = get_model(dataclasses.replace(exp, model=dataclasses.replace(
+        cfg, compute_dtype=torch.float32)), device=dev)
+    ref.load_state_dict(model.state_dict())
+    ref_out = render_image(ref, vb, height=size, width=size, chunk=chunk)
+    del ref
+    if float(ref_out["cull_overflow"].max()) != 0.0:
+        raise SystemExit("empty-ray cull budget exceeded on the f32 fast render")
+    compare_renders(ref_out, out, "512² fast render, bf16 vs f32", FAST_BF16_BOUNDS)
+    del ref_out
+
+    # with the top-k cuts off the cull is exact under the lerp bound
+    exact = dataclasses.replace(cfg, fine_topk_ratio=1.0, coarse_topk_ratio=1.0)
+    renders = {}
+    for name, ratio in (("culled", cfg.cull_empty_rays_ratio), ("unculled", 1.0)):
+        m = get_model(dataclasses.replace(exp, model=dataclasses.replace(
+            exact, cull_empty_rays_ratio=ratio)), device=dev)
+        m.load_state_dict(model.state_dict())
+        renders[name] = render_image(m, vb, height=size, width=size, chunk=chunk, feats=feats)
+    if float(renders["culled"].pop("cull_overflow").max()) != 0.0:
+        raise SystemExit("empty-ray cull budget exceeded with the top-k cuts off")
+    differ = [k for k in renders["unculled"]
+              if not torch.equal(renders["unculled"][k], renders["culled"][k])]
+    print(f"fast preset, top-k cuts off: culled vs unculled 512² render: "
+          f"{'bit-equal' if not differ else 'DIFFER ' + str(differ)}", flush=True)
+    if differ:
+        raise SystemExit("the culled render under the lerp bound differs from the unculled")
+
+    print(f"one render, fast preset (wall {seconds * 1e3:.3f} ms; the strict camera: "
+          f"{strict['device_ms']:.3f} ms of kernel time):", flush=True)
+    device_ms = profile_kernels(render, 10)
+    print(f"fast vs strict 512² camera, same run: {n_rays / seconds:.1f} vs "
+          f"{n_rays / strict['seconds']:.1f} rays/s, {device_ms:.3f} vs "
+          f"{strict['device_ms']:.3f} ms of kernel time", flush=True)
+    return dict(exp=exp, model=model, feats=feats, vb=vb)
+
+
+def render_fast_orbit(dev, ctx) -> None:
+    """render_cameras_scanned over 4 cameras of the bench orbit (radius 3.5,
+    0.7 rad apart) at 256² from one encoding of the 512² inputs: finite,
+    worst overflow 0, and each frame render_image of its own camera (the
+    frames' order; the scanned renderer is a loop over render_image, so
+    this is no check of the render itself)."""
+    from keypointnerf_torch.render import render_cameras_scanned, render_image
+
+    model, feats, vb, size, chunk = ctx["model"], ctx["feats"], ctx["vb"], 256, 8192
+    cams = [orbit_camera(0.7 * i) for i in range(4)]
+    Ks = vb.tar_K[None].expand(4, 3, 3)
+    Rs = torch.as_tensor(np.stack([R for R, _ in cams]), device=dev)
+    ts = torch.as_tensor(np.stack([t for _, t in cams]), device=dev)
+    orbit = lambda: render_cameras_scanned(model, feats, vb, Ks, Rs, ts, height=size,  # noqa: E731
+                                           width=size, chunk=chunk)
+    orbit()                                               # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, worst = orbit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    differ = []
+    for f in range(4):
+        single = render_image(model, dataclasses.replace(vb, tar_K=Ks[f], tar_R=Rs[f],
+                                                         tar_t=ts[f]),
+                              height=size, width=size, chunk=chunk, feats=feats)
+        if not torch.equal(single["rgb_fine"], rgb[f]):
+            differ.append(f)
+    print(f"orbit of 4 cameras at 256², fast preset, one encoding: {tuple(rgb.shape)} in "
+          f"{seconds:.4f} s = {4 * size * size / seconds:.1f} rays/s; worst cull_overflow "
+          f"{float(worst)}; frames equal to render_image: "
+          f"{'all' if not differ else 'NOT ' + str(differ)}; mean rgb "
+          f"{rgb.float().mean().item():.6f}", flush=True)
+    if float(worst) != 0.0 or differ or not bool(torch.isfinite(rgb).all()):
+        raise SystemExit("the scanned orbit overflowed, is not finite or differs from "
+                         "render_image")
+
+
+def eval_fast(ctx) -> None:
+    """run_eval of the fast model on a 2-sample SyntheticDataset at 512²,
+    the cull budget probed on the first sample; PNGs and the YAML under
+    build/."""
+    from keypointnerf_torch.data import SyntheticConfig, SyntheticDataset
+    from keypointnerf_torch.evaluation import run_eval
+
+    exp = dataclasses.replace(ctx["exp"], out_dir=str(EVAL_DIR))
+    data = SyntheticDataset(SyntheticConfig(image_size=512, n_views=4), length=2)
+    t0 = time.perf_counter()
+    scores = run_eval(exp, ctx["model"], data, auto_cull_budget=1)
+    print(f"run_eval, fast preset, 2 samples at 512²: {scores} in "
+          f"{time.perf_counter() - t0:.2f} s; PNGs under {EVAL_DIR / exp.name}", flush=True)
+    if not (np.isfinite(scores.get("psnr", np.nan)) and np.isfinite(scores.get("ssim", np.nan))):
+        raise SystemExit("run_eval's PSNR / SSIM are not finite")
+
+
+@contextlib.contextmanager
+def recorded_selections():
+    """Record every top-k selection a render makes: the empty-ray cull's
+    over all rays (`render.renderer.top_k_indices`) and each chunk's coarse
+    and fine cuts (`models.keypoint_nerf.top_k_indices`), as index tensors
+    on the CPU, in call order."""
+    import keypointnerf_torch.models.keypoint_nerf as knerf
+    import keypointnerf_torch.render.renderer as rmod
+
+    rec = {"cull": [], "cuts": []}
+    topk_m, topk_r = knerf.top_k_indices, rmod.top_k_indices
+
+    def recording(topk, into):
+        def f(score, k):
+            idx = topk(score, k)
+            into.append(idx.cpu())
+            return idx
+        return f
+
+    knerf.top_k_indices = recording(topk_m, rec["cuts"])
+    rmod.top_k_indices = recording(topk_r, rec["cull"])
+    try:
+        yield rec
+    finally:
+        knerf.top_k_indices, rmod.top_k_indices = topk_m, topk_r
+
+
+def ray_status(rec, n_rays, chunk):
+    """(n_rays, 3) bool: each ray's [kept by the empty-ray cull, marched by
+    its chunk's coarse cut, marched by its chunk's fine cut], from the
+    selections of `recorded_selections` (one cull, then a coarse and a fine
+    cut per chunk). A ray's outputs are those of its first place in the
+    marched order; the padding copies after the k-th place are ignored."""
+    (order,), cuts = rec["cull"], rec["cuts"]
+    k = order.numel()
+    status = torch.zeros(n_rays, 3, dtype=torch.bool)
+    status[order, 0] = True
+    if len(cuts) != 2 * -(-k // chunk):
+        raise SystemExit(f"{len(cuts)} chunk cuts recorded for {-(-k // chunk)} chunks")
+    for c in range(len(cuts) // 2):
+        pos = c * chunk + torch.arange(chunk)
+        real = pos < k
+        for j, sel in enumerate(cuts[2 * c:2 * c + 2]):
+            marched = torch.zeros(chunk, dtype=torch.bool)
+            marched[sel] = True
+            status[order[pos[real]], 1 + j] = marched[real]
+    return status
+
+
+# Toy f32 fast render, card against CPU. A ray at a top-k boundary (the
+# fine cut ranks rays by coarse opacity, whose last bits differ between
+# the two programs) can flip whole between marched and kept-coarse. The
+# check records which rays each program's cull and cuts marched, allows
+# at most FAST_AGREEMENT_FLIPS rays whose status differs, and holds every
+# other ray at agreement_small's bound, 1e-4 of each output's max.
+FAST_AGREEMENT_FLIPS = 2
+
+
+def agreement_fast(dev) -> None:
+    """The toy fast render (fused map, gather-lerp, cull, coarse 0.5, fine
+    0.75) in f32 on the card against the CPU."""
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.models import KeypointNeRF, KeypointNeRFConfig, ViewBatch, fast_preset
+    from keypointnerf_torch.render import render_image
+
+    base = KeypointNeRFConfig(n_coarse=4, n_fine=4, geo_n_downsample=2)
+    cfg = dataclasses.replace(fast_preset(base, cull_budget=0.6), compute_dtype=torch.float32,
+                              coarse_topk_ratio=0.5, fine_topk_ratio=0.75)
+    size, chunk = 32, 256
+    sample = make_sample(SyntheticConfig(image_size=size), seed=3)
+    sample["src_images"] = np.random.default_rng(7).uniform(
+        0, 1, sample["src_images"].shape).astype(np.float32)
+    outs, status = {}, {}
+    for d in (dev, torch.device("cpu")):
+        model = KeypointNeRF(cfg, device=d, seed=0)
+        with recorded_selections() as rec:
+            out = render_image(model, ViewBatch.from_numpy(sample, device=d), height=size,
+                               width=size, chunk=chunk)
+        outs[d.type] = {k: v.cpu() for k, v in out.items()}
+        status[d.type] = ray_status(rec, size * size, chunk)
+    if float(outs["cuda"]["cull_overflow"].max()) != 0.0:
+        raise SystemExit("toy fast render: cull budget exceeded on the card")
+    flipped = (status["cuda"] != status["cpu"]).any(-1)
+    same = ~flipped
+    worst, rows = 0.0, []
+    for k, ref in outs["cpu"].items():
+        if k == "cull_overflow":
+            continue
+        got = outs["cuda"][k].reshape(size * size, -1)
+        if not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"toy fast render: output {k} is not finite on the card")
+        ref = ref.reshape(size * size, -1)
+        err = ((got - ref).abs()[same].max() / ref.abs().max().clamp(min=1e-12)).item()
+        rows.append(f"{k} {err:.3e}")
+        worst = max(worst, err)
+    print(f"toy f32 fast render, card vs CPU: rays marched by the cull / coarse cut / fine "
+          f"cut {status['cuda'].sum(0).tolist()} on the card, {status['cpu'].sum(0).tolist()} "
+          f"on the CPU; {int(flipped.sum())} rays of {size * size} differ in status (bound "
+          f"{FAST_AGREEMENT_FLIPS}); the others, max relative error {'; '.join(rows)}; worst "
+          f"{worst:.3e} (bound 1e-4)", flush=True)
+    if int(flipped.sum()) > FAST_AGREEMENT_FLIPS or not worst <= 1e-4:
+        raise SystemExit("toy fast render on the card disagrees with the CPU render")
+
+
 def agreement_small(dev, **overrides) -> None:
     """Toy f32 strict render on the card vs the same render on the CPU
     (`overrides` are config fields, e.g. use_pallas_geo_mlp=True)."""
@@ -1752,15 +2099,11 @@ def agreement_small(dev, **overrides) -> None:
 
 
 def zju_config(**overrides):
-    """KeypointNeRFConfig from the "model" section of configs/zju.json."""
-    from keypointnerf_torch.models import KeypointNeRFConfig
+    """KeypointNeRFConfig of configs/zju.json's "model" section, read by the
+    port's load_config."""
+    from keypointnerf_torch.utils import load_config
 
-    dtypes = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
-              "f32": torch.float32, "float32": torch.float32}
-    model = json.loads(ZJU_CONFIG.read_text())["model"]
-    if "compute_dtype" in model:
-        model["compute_dtype"] = dtypes[model["compute_dtype"]]
-    return dataclasses.replace(KeypointNeRFConfig(**model), **overrides)
+    return dataclasses.replace(load_config(str(ZJU_CONFIG)).model, **overrides)
 
 
 def train_full_width(dev, fused=False, warmup=2, steps=5, capture_k1=False) -> dict:
@@ -1774,8 +2117,8 @@ def train_full_width(dev, fused=False, warmup=2, steps=5, capture_k1=False) -> d
     from keypointnerf_torch.ops import multiview_onehot_bilinear_sample as k2
     from keypointnerf_torch.ops import geo_mlp_apply as k4
     from keypointnerf_torch.ops import sp_geo_mlp_apply as k5
-    from keypointnerf_torch.training import (
-        LossConfig, OptimConfig, TrainDraws, create_train_state, train_step_fn)
+    from keypointnerf_torch.training import TrainDraws, create_train_state, train_step_fn
+    from keypointnerf_torch.utils import load_config
 
     cfg = zju_config(use_pallas_geo_mlp=fused)
     print(f"train config (configs/zju.json model section): n_coarse={cfg.n_coarse} "
@@ -1788,8 +2131,9 @@ def train_full_width(dev, fused=False, warmup=2, steps=5, capture_k1=False) -> d
     # as in the render phase: radiance > 0 somewhere, so every term trains
     model.mlp_geo.layers2.layers[-1].linear.bias.data[1] += 2.0
     vgg = VGG19Features(device=dev, seed=42)                 # full width, random, frozen
-    loss_cfg = LossConfig(lambda_vgg=0.5)
-    state = create_train_state(model, OptimConfig(learning_rate=5e-4), vgg)
+    recipe = load_config(str(ZJU_CONFIG))                 # its loss and optim sections
+    loss_cfg = recipe.loss
+    state = create_train_state(model, recipe.optim, vgg)
     gen = torch.Generator(device=dev).manual_seed(0)
     before = [p.detach().clone() for p in model.parameters()]
     rays = cfg.patch_h * cfg.patch_w
@@ -1963,7 +2307,7 @@ def train_agreement_small(dev, **overrides) -> None:
         raise SystemExit("the card's training step disagrees with the CPU's")
 
 
-PHASES = ("kernels", "render", "agreement", "train", "train_agreement")
+PHASES = ("kernels", "render", "fast", "agreement", "train", "train_agreement")
 
 
 def main() -> int:
@@ -1973,6 +2317,8 @@ def main() -> int:
     todo = parser.parse_args().phases.split(",")
     if not set(todo) <= set(PHASES):
         parser.error(f"unknown phase in {todo}")
+    if "fast" in todo and "render" not in todo:
+        parser.error("the fast phase compares with the strict camera: add render")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -2024,11 +2370,22 @@ def main() -> int:
         phase("full-width strict render with the fused map, K3 and K6, stride 2")
         launches["composite_importance"] = render_composite(
             dev, ctx, fused["cfg"])["composite_importance"]
+        strict = {k: ctx[k] for k in ("model", "vb", "out", "seconds", "device_ms", "size")}
         del ctx
         phase("strict render with sp_type rel_z and use_pallas_geo_mlp (K4)")
         launches["fused_geo_mlp"] = render_rel_z(dev)
         phase("strict render at widths the wgmma kernel refuses, use_pallas_geo_mlp (wmma K5)")
         render_wmma_widths(dev)
+
+    if "fast" in todo:
+        phase("full-width fast render (configs/zju_fast.json)")
+        fast = render_fast(dev, strict)
+        del strict
+        phase("fast preset: orbit of 4 cameras at 256² (render_cameras_scanned)")
+        render_fast_orbit(dev, fast)
+        phase("fast preset: run_eval on the synthetic dataset")
+        eval_fast(fast)
+        del fast
 
     if "agreement" in todo:
         phase("small-input agreement")
@@ -2038,6 +2395,7 @@ def main() -> int:
         agreement_small(dev, fused_feature_map=True, use_dma_gather=True)
         agreement_small(dev, fused_feature_map=True, use_dma_gather=True,
                         use_pallas_composite=True, cull_empty_rays_ratio=1.0)
+        agreement_fast(dev)
 
     if "train" in todo:
         phase("full-width zju training steps")

@@ -11,12 +11,17 @@ Layer map (each module sits where its JAX counterpart does):
   models/     nn.Modules: spatial encoding, MLP stack, CNN encoders, IBR
               head, VGG19 features, the KeypointNeRF assembly (eval and
               training forward) and the eval presets
-  render/     chunked full-image render with the exact empty-ray cull
+  render/     chunked full-image render with the exact empty-ray cull,
+              several cameras of one subject, batches of subjects
   training/   explicit train-time draws, the loss stack, the optimizer
               step with optax's schedules, clipping and accumulation
-  utils/      weight carry from the JAX parameter tree
+  evaluation/ PSNR / SSIM by the reference protocol, PNG trees, the
+              test-set runner
+  utils/      configs/*.json -> dataclasses, weight carry from the JAX
+              parameter tree
 
-The port renders with `strict_preset` semantics and trains with the
+The port renders with the `strict_preset` and `fast_preset` semantics
+(configs/zju_fast.json), scores renders, and trains with the
 configs/zju.json recipe. Flags it does not implement raise
 NotImplementedError naming their ROADMAP item.
 """

@@ -1,3 +1,3 @@
-from .synthetic import SyntheticConfig, look_at, make_sample
+from .synthetic import SyntheticConfig, SyntheticDataset, look_at, make_sample
 
-__all__ = ["SyntheticConfig", "look_at", "make_sample"]
+__all__ = ["SyntheticConfig", "SyntheticDataset", "look_at", "make_sample"]

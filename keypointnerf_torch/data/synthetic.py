@@ -2,7 +2,7 @@
 calibrated camera rig.
 
 A numpy copy of `keypointnerf_tpu/data/synthetic.py` (`SyntheticConfig`,
-`look_at`, `make_sample`), kept here so the port builds its scenes without
+`look_at`, `make_sample`, `SyntheticDataset`), kept here so the port builds its scenes without
 importing the JAX package. The arrays are bit-identical to the JAX
 package's for the same seed (tests/test_torch_geometry.py).
 """
@@ -128,3 +128,18 @@ def make_sample(cfg: SyntheticConfig = SyntheticConfig(), seed: int = 0):
         "kpt3d": kpt3d,
         "bounds": bounds,
     }
+
+
+class SyntheticDataset:
+    """Indexable dataset of ViewBatch-shaped numpy dicts: sample i is
+    `make_sample(cfg, seed=i)`."""
+
+    def __init__(self, cfg: SyntheticConfig = SyntheticConfig(), length: int = 16):
+        self.cfg = cfg
+        self.length = length
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx: int):
+        return make_sample(self.cfg, seed=idx)

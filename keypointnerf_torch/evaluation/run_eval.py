@@ -1,0 +1,115 @@
+"""Test-set evaluation: full-image renders and mean metrics.
+
+Port of `keypointnerf_tpu/evaluation/run_eval.py`: render each test
+sample at full resolution with the port's `render_image`, score PSNR /
+SSIM with the `Evaluator` (which saves the pred / gt / input PNG trees)
+and write the means to `{out_dir}/{name}/test_v3_{step}.yml`.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..models.keypoint_nerf import KeypointNeRF, ViewBatch
+from ..render import render_image, suggest_cull_budget
+from .evaluator import Evaluator
+
+
+def _batch(sample, device) -> ViewBatch:
+    return ViewBatch.from_numpy({k: v for k, v in sample.items() if k != "meta"}, device=device)
+
+
+def run_eval(
+    cfg,
+    model: KeypointNeRF,
+    dataset,
+    result_dir: Optional[str] = None,
+    max_samples: Optional[int] = None,
+    stride: int = 1,
+    sharded: bool = False,
+    auto_cull_budget: int = 0,
+    step: int = 0,
+) -> Dict[str, float]:
+    """Mean {"mse", "psnr", "ssim"} of `model` over `dataset` (numpy sample
+    dicts, each with an optional "meta" dict; None entries are skipped).
+
+    `cfg` is the ExperimentConfig (out_dir / name place the outputs);
+    `step` names the YAML file. `auto_cull_budget=N`, with a culling model,
+    scores the first N loadable samples' target cameras with
+    `suggest_cull_budget` and raises the cull budget to cover them. A
+    rendered sample whose `cull_overflow` is nonzero is reported.
+    `sharded=True` (rays across devices) is not ported yet.
+    """
+    if sharded:
+        raise NotImplementedError(
+            "sharded evaluation is not ported yet: ROADMAP Queue 1 item 6 (parallel/)")
+    out_dir = os.path.join(cfg.out_dir, cfg.name)
+    result_dir = result_dir or os.path.join(out_dir, "images_v3")
+    evaluator = Evaluator(result_dir=result_dir)
+    dev = model.device
+
+    if auto_cull_budget and model.cfg.cull_empty_rays_ratio < 1.0:
+        worst_budget, worst_hull, probed = 0.0, 0.0, 0
+        for i in range(len(dataset)):
+            if probed >= auto_cull_budget:
+                break
+            sample = dataset[i]
+            if sample is None:
+                continue
+            vb = _batch(sample, dev)
+            H, W = vb.tar_image.shape[:2]
+            feats = (model.encode(vb.src_images, vb.src_masks)
+                     if model.cfg.fused_feature_map else None)
+            b, h = suggest_cull_budget(model.cfg, vb, [(vb.tar_K, vb.tar_R, vb.tar_t)],
+                                       H, W, feats=feats)
+            worst_budget, worst_hull = max(worst_budget, b), max(worst_hull, h)
+            probed += 1
+        if worst_budget > model.cfg.cull_empty_rays_ratio:
+            print(f"auto_cull_budget: raising cull budget "
+                  f"{model.cfg.cull_empty_rays_ratio} -> {worst_budget} "
+                  f"(probed {probed} samples, worst hull {worst_hull:.3f})")
+            # a shallow copy shares the weights; only the config differs
+            model = copy.copy(model)
+            model.cfg = dataclasses.replace(model.cfg, cull_empty_rays_ratio=worst_budget)
+
+    scores = []
+    n = len(dataset) if max_samples is None else min(len(dataset), max_samples)
+    for i in range(n):
+        sample = dataset[i]
+        if sample is None:
+            continue
+        meta = sample.get("meta", {})
+        vb = _batch(sample, dev)
+        H, W = vb.tar_image.shape[:2]
+        out = render_image(model, vb, height=H, width=W, stride=stride)
+        if "cull_overflow" in out:
+            ov = float(out["cull_overflow"].max())
+            if ov > 0:
+                print(f"WARNING: sample {i}: empty-ray cull budget exceeded by {ov:.0f} "
+                      "rays — this image is NOT exact; raise cull_empty_rays_ratio or use "
+                      "auto_cull_budget")
+        pred = np.clip(out["rgb_fine"].float().cpu().numpy(), 0.0, 1.0)
+        gt = np.asarray(sample["tar_image"])[::stride, ::stride]
+        mab = np.asarray(meta.get("mask_at_box", np.ones((H, W))))[::stride, ::stride]
+        score = evaluator.compute_score(
+            pred, gt, mab,
+            input_imgs=np.asarray(sample["src_images"]),
+            human_idx=str(meta.get("human", "h")),
+            frame_index=int(meta.get("frame_index", i)),
+            view_index=int(meta.get("tar_cam_id", 0)),
+        )
+        scores.append(score)
+        print(f"[{i + 1}/{n}] psnr={score['psnr']:.2f} ssim={score['ssim']:.4f}")
+
+    mean = {k: float(np.mean([s[k] for s in scores])) for k in scores[0]} if scores else {}
+    yml_path = os.path.join(out_dir, f"test_v3_{step}.yml")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(yml_path, "w") as f:
+        for k, v in mean.items():
+            f.write(f"{k}: {v}\n")
+    print("mean:", mean, "->", yml_path)
+    return mean

@@ -1,5 +1,5 @@
 from .keypoint_nerf import KeypointNeRF, KeypointNeRFConfig, ViewBatch, check_supported
-from .presets import STRICT_CULL_BUDGET, strict_preset
+from .presets import FAST_CULL_BUDGET, STRICT_CULL_BUDGET, fast_preset, strict_preset
 from .vgg import VGG19Features, vgg_loss
 from .spatial_encoding import (
     SpatialEncodingConfig,
@@ -13,7 +13,9 @@ __all__ = [
     "KeypointNeRFConfig",
     "ViewBatch",
     "check_supported",
+    "FAST_CULL_BUDGET",
     "STRICT_CULL_BUDGET",
+    "fast_preset",
     "strict_preset",
     "SpatialEncodingConfig",
     "positional_encoding",

@@ -11,7 +11,9 @@ training:
                        the input grid (or its half with `fused_map_half`).
   * `query_points()` — per-point evaluation: projection, validity, bilinear
                        lookups (one lookup of the fused map, through kernel
-                       K3 with `use_dma_gather` at eval; else the tex map
+                       K3 with `use_dma_gather` at eval, or at every
+                       `gather_lerp_stride`-th sample with the others lerped
+                       along the ray with `gather_lerp`; else the tex map
                        through kernel K2 when `tex_onehot_sample` at eval;
                        the matmul-VJP lookup, with K1 for the coarse map's
                        gradient, when `train_matmul_gather_vjp`), view dropout in
@@ -23,8 +25,11 @@ training:
                        importance resampling (with `use_pallas_composite`
                        one launch of kernel K6 for the coarse composite and
                        the fine depths) and the exact coarse-value reuse
-                       merge, in training with stratified jitter, random
-                       importance samples and the sorted union.
+                       merge, and the fast preset's top-k culls (the coarse
+                       pass on the rays that hit the AABB, the fine pass on
+                       the rays of the largest coarse opacity); in training
+                       with stratified jitter, random importance samples and
+                       the sorted union.
   * `forward()`      — JAX's `__call__`: encode, a training patch (or the
                        full image at eval), the march and the targets.
 
@@ -39,9 +44,9 @@ The modules keep the original KeypointNeRF state_dict layout
 f32; `cfg.compute_dtype` is the dtype the layers compute in. Point layout
 is (V, N, C), N = rays * samples flattened.
 
-The fast preset's approximations (gather-lerp, the top-k culls), the
-fused map in training and `remat` are later slices: a config that needs
-them raises NotImplementedError naming the ROADMAP item.
+The fused map in training, `separate_cf`, the attention pools and `remat`
+are later slices: a config that needs them raises NotImplementedError
+naming the ROADMAP item.
 `pallas_interpret` is a config field the port ignores.
 """
 from __future__ import annotations
@@ -182,9 +187,6 @@ def check_supported(cfg: KeypointNeRFConfig) -> None:
             "nl_relu_approx is not supported with use_pallas_geo_mlp "
             "(the fused kernel applies softplus100)")
     unported = [
-        (cfg.gather_lerp, "gather_lerp", "Queue 1 item 3 (fast slice)"),
-        (cfg.coarse_topk_ratio < 1.0, "coarse_topk_ratio < 1", "Queue 1 item 3 (fast slice)"),
-        (cfg.fine_topk_ratio < 1.0, "fine_topk_ratio < 1", "Queue 1 item 3 (fast slice)"),
         (cfg.separate_cf, "separate_cf", "Queue 1 item 2 (model remainder)"),
         (bool(cfg.pool_mode), f"pool_mode={cfg.pool_mode!r}", "Queue 1 item 2 (AttentionPool)"),
         (cfg.remat, "remat", "Queue 1 item 1 (remat)"),
@@ -197,6 +199,41 @@ def check_supported(cfg: KeypointNeRFConfig) -> None:
     if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, "
                          f"got {cfg.compute_dtype!r}")
+
+
+def top_k_indices(score, k: int):
+    """Indices of the k largest entries of the 1-D `score`, largest first
+    and, among equal scores, lower index first: `jax.lax.top_k`'s order
+    (`torch.topk` promises none), so a cull marches JAX's rays."""
+    return torch.sort(score, descending=True, stable=True).indices[:k]
+
+
+def strided_gather_lerp(fmap, xy, n_samples: int, stride: int = 2):
+    """The lookup of `fmap` at every `stride`-th sample of each ray (and
+    the last), the samples between lerped from their segment's two anchor
+    values by the parametric position of their projection on it.
+
+    Port of the JAX model's `_strided_gather_lerp`. xy (V, R*S, 2)
+    ray-major, S = `n_samples`; returns (V, R*S, C) in the map's dtype.
+    At an anchor t is exactly 0 and the lookup passes through; elsewhere t
+    is clipped to [0, 1] and cast to the map's dtype before the lerp.
+    """
+    V, N, _ = xy.shape
+    S, k = n_samples, stride
+    R = N // S
+    xyr = xy.reshape(V, R, S, 2)
+    xa = torch.cat([xyr[:, :, ::k], xyr[:, :, -1:]], dim=2)   # (V, R, G, 2)
+    G = xa.shape[2]
+    fa = multiview_bilinear_sample(fmap, xa.reshape(V, R * G, 2)).reshape(V, R, G, -1)
+    # sample s lies in segment s // k: repeat each segment's ends k times
+    # ((G - 1) * k >= S) and cut to S
+    rep = lambda a: a.repeat_interleave(k, dim=2)[:, :, :S]   # noqa: E731
+    left, right = rep(fa[:, :, :-1]), rep(fa[:, :, 1:])
+    xl, xr = rep(xa[:, :, :-1]), rep(xa[:, :, 1:])
+    seg = xr - xl
+    t = ((xyr - xl) * seg).sum(-1, keepdim=True) / ((seg * seg).sum(-1, keepdim=True) + 1e-12)
+    t = t.clamp(0.0, 1.0).to(left.dtype)
+    return (left + t * (right - left)).reshape(V, N, -1)
 
 
 @dataclasses.dataclass
@@ -354,8 +391,8 @@ class KeypointNeRF(nn.Module):
                      train: bool = False, view_keep=None):
         """Evaluate [sdf, radiance, rgb] at N world points.
 
-        pts, view_dirs (N, 3); `n_samples` (samples per ray) is the JAX
-        signature's, read by the fast slice's gather-lerp. `view_keep` (V,)
+        pts, view_dirs (N, 3) ray-major; `n_samples` (samples per ray) is
+        what `gather_lerp` groups the points by. `view_keep` (V,)
         is the training view-dropout draw (0/1 per view, one view forced
         kept), applied when `train` and V > 1. Returns f32 sdf (N, 1),
         rad (N, 1), rgb (N, 3) and valid (N, 1).
@@ -386,9 +423,16 @@ class KeypointNeRF(nn.Module):
             mvbs = multiview_bilinear_sample
         feat_coarse = feat_xy = None
         if "fused" in feats:
-            # one lookup of the packed map gives every per-point feature
-            if c.use_dma_gather and not train:
+            # one lookup of the packed map gives every per-point feature;
+            # the lerp is off under K3, as in the JAX model (the cull's
+            # bound still follows `gather_lerp` alone, render/empty_cull.py)
+            dma = c.use_dma_gather and not train
+            lerp = (c.gather_lerp and not train and not dma
+                    and n_samples > c.gather_lerp_stride >= 2 and N % n_samples == 0)
+            if dma:
                 fx = multiview_bilinear_sample_dma(feats["fused"], xy.float().contiguous())  # K3
+            elif lerp:
+                fx = strided_gather_lerp(feats["fused"], xy, n_samples, c.gather_lerp_stride)
             else:
                 fx = mvbs(feats["fused"], xy)
             co_ch, tx_ch = c.geo_out_ch, c.tex_out_ch
@@ -525,14 +569,26 @@ class KeypointNeRF(nn.Module):
 
         z = stratified_z(near, far, c.n_coarse,
                          u=None if draws is None else draws.strat_u)     # (R, S)
-        pts = origin + dirs[:, None, :] * z[..., None]
-        view = dirs[:, None, :].expand(pts.shape)
+        S = c.n_coarse
+        # coarse-pass cull (eval): march only the top Kc rays by AABB hit;
+        # the others take the values of empty space
+        ccull = not train and c.coarse_topk_ratio < 1.0
+        if ccull:
+            csel = top_k_indices(hit[..., 0].float(), max(1, int(Rn * c.coarse_topk_ratio)))
+            dirs_c, z_c = dirs[csel], z[csel]
+        else:
+            dirs_c, z_c = dirs, z
+        Rc = dirs_c.shape[0]
+        pts = origin + dirs_c[:, None, :] * z_c[..., None]
+        view = dirs_c[:, None, :].expand(pts.shape)
         alpha, sdf, rgb = self._eval_density(
-            pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, c.n_coarse,
+            pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, S,
             None if draws is None else draws.coarse)
-        alpha = alpha.reshape(Rn, c.n_coarse)
-        sdf = sdf.reshape(Rn, c.n_coarse)
-        rgb = rgb.reshape(Rn, c.n_coarse, 3)
+        alpha, sdf, rgb = alpha.reshape(Rc, S), sdf.reshape(Rc, S), rgb.reshape(Rc, S, 3)
+        if ccull:
+            alpha = alpha.new_zeros(Rn, S).index_copy_(0, csel, alpha)
+            sdf = sdf.new_full((Rn, S), c.bkg_sdf).index_copy_(0, csel, sdf)
+            rgb = rgb.new_zeros(Rn, S, 3).index_copy_(0, csel, rgb)
         use_pc = not train and fine and c.use_pallas_composite
         if use_pc:
             # one K6 launch: the coarse composite and the fine depths
@@ -557,37 +613,61 @@ class KeypointNeRF(nn.Module):
             z_fine = importance_z(coarse.contrib[..., 1:-1].detach(), z_mid, c.n_fine,
                                   u=None if draws is None else draws.importance_u)
 
+        # fine-pass cull (eval): march only the top K rays by coarse
+        # opacity; the others keep their coarse result
+        cull = not train and c.fine_topk_ratio < 1.0
+        if cull:
+            sel = top_k_indices(coarse.acc, max(1, int(Rn * c.fine_topk_ratio)))
+            take = lambda x: x[sel]                                    # noqa: E731
+        else:
+            take = lambda x: x                                         # noqa: E731
+        dirs_f = take(dirs)
+        Rf = dirs_f.shape[0]
         # the reuse merge is exact only for a deterministic query (eval)
         if c.reuse_coarse_eval and not train:
             # the eval query is deterministic: evaluate only the fine depths
             # and merge the cached coarse values (exact)
-            pts = origin + dirs[:, None, :] * z_fine[..., None]
-            view = dirs[:, None, :].expand(pts.shape)
+            z_f = take(z_fine)
+            pts = origin + dirs_f[:, None, :] * z_f[..., None]
+            view = dirs_f[:, None, :].expand(pts.shape)
             alpha_f, sdf_f, rgb_f = self._eval_density(
                 pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, c.n_fine)
-            v_c = torch.cat([alpha[..., None], sdf[..., None], rgb], dim=-1)
+            v_c = torch.cat([take(alpha)[..., None], take(sdf)[..., None], take(rgb)], dim=-1)
             v_f = torch.cat([
-                alpha_f.reshape(Rn, c.n_fine, 1),
-                sdf_f.reshape(Rn, c.n_fine, 1),
-                rgb_f.reshape(Rn, c.n_fine, 3),
+                alpha_f.reshape(Rf, c.n_fine, 1),
+                sdf_f.reshape(Rf, c.n_fine, 1),
+                rgb_f.reshape(Rf, c.n_fine, 3),
             ], dim=-1)
-            zs, vs = merge_sorted_payloads(z, z_fine, v_c, v_f)
+            zs, vs = merge_sorted_payloads(take(z), z_f, v_c, v_f)
             fine_out = composite(vs[..., 0], vs[..., 1], vs[..., 2:5], zs)
         else:
             n_all = c.n_coarse + c.n_fine
-            z_all = union_sorted_z(z, z_fine)
-            pts = origin + dirs[:, None, :] * z_all[..., None]
-            view = dirs[:, None, :].expand(pts.shape)
+            z_all = take(union_sorted_z(z, z_fine))
+            pts = origin + dirs_f[:, None, :] * z_all[..., None]
+            view = dirs_f[:, None, :].expand(pts.shape)
             alpha_a, sdf_a, rgb_a = self._eval_density(
                 pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, n_all,
                 None if draws is None else draws.fine)
-            fine_out = composite(alpha_a.reshape(Rn, n_all), sdf_a.reshape(Rn, n_all),
-                                 rgb_a.reshape(Rn, n_all, 3), z_all)
+            fine_out = composite(alpha_a.reshape(Rf, n_all), sdf_a.reshape(Rf, n_all),
+                                 rgb_a.reshape(Rf, n_all, 3), z_all)
+        if not cull:
+            out.update({
+                "rgb_fine": fine_out.color,
+                "depth_fine": fine_out.depth,
+                "acc_fine": fine_out.acc,
+                "sdf_fine": fine_out.sdf,
+            })
+            return out
+        res = torch.cat([fine_out.color, fine_out.depth[:, None], fine_out.acc[:, None],
+                         fine_out.sdf[:, None]], dim=-1)                # (Rf, 6)
+        fallback = torch.cat([coarse.color, coarse.depth[:, None], coarse.acc[:, None],
+                              coarse.sdf[:, None].to(res.dtype)], dim=-1)
+        res = fallback.index_copy(0, sel, res)
         out.update({
-            "rgb_fine": fine_out.color,
-            "depth_fine": fine_out.depth,
-            "acc_fine": fine_out.acc,
-            "sdf_fine": fine_out.sdf,
+            "rgb_fine": res[:, :3],
+            "depth_fine": res[:, 3],
+            "acc_fine": res[:, 4],
+            "sdf_fine": res[:, 5],
         })
         return out
 

@@ -1,12 +1,12 @@
 """Exact empty-ray culling for full-image inference.
 
-Port of `keypointnerf_tpu/render/empty_cull.py`, per-sample (non-lerp)
-branch. A ray whose every sample point fails the all-view foreground test
-(fg > 0.1 in every source view) composites to exactly zero, because the
-model multiplies the radiance by that validity. This module bounds, per
-ray, the foreground value its points can see in their worst view; rays
-whose bound stays at or below EMPTY_SCORE_THRESHOLD are provably zero and
-the renderer marches only the rest.
+Port of `keypointnerf_tpu/render/empty_cull.py`. A ray whose every
+sample point fails the all-view foreground test (fg > 0.1 in every
+source view) composites to exactly zero, because the model multiplies
+the radiance by that validity. This module bounds, per ray, the
+foreground value its points can see in their worst view; rays whose
+bound stays at or below EMPTY_SCORE_THRESHOLD are provably zero and the
+renderer marches only the rest.
 
 Why the bound is conservative:
 1. Sample placement is the renderer's own: the same stratified and
@@ -24,6 +24,19 @@ Why the bound is conservative:
    bf16 blend stay within the 0.01 margin below the 0.1 validity test.
 4. The frustum part of the validity test is ignored: it can only make
    more points invalid.
+5. With `gather_lerp` a non-anchor sample sees, per view, a convex mix of
+   its segment's two anchor values, so the per-sample all-view bound is
+   unsound. Two sound bounds replace it:
+   - tight (`reuse_coarse_eval`, no `separate_cf`: the model looks up the
+     coarse and the fine depths as two groups, each only at its anchors,
+     every stride-th sample and the last): only the anchors are scored.
+     A sample of segment j mixes anchors j and j + 1, so per view a
+     window-3 max over the anchor axis covers it; the score is the max
+     over both groups of (max over anchors of min over views of that);
+   - loose (any other decomposition): min over views of the max over
+     all the ray's samples, which bounds any mix along the ray.
+   The bound follows `cfg.gather_lerp` alone, also where `use_dma_gather`
+   turns the lerp off in the query (as the JAX package chooses).
 """
 from __future__ import annotations
 
@@ -88,6 +101,15 @@ def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096,
     else:
         mask_map = vb.src_masks
     V, Hm, Wm = mask_map.shape[:3]
+    lerp_mode = (feats is not None and "fused" in feats
+                 and cfg.gather_lerp and cfg.gather_lerp_stride >= 2)
+    lerp_tight = lerp_mode and cfg.reuse_coarse_eval and not cfg.separate_cf
+    if lerp_tight:
+        # each group's anchor positions: every stride-th sample and the last
+        k = cfg.gather_lerp_stride
+        anchors = lambda S: torch.cat([torch.arange(0, S, k), torch.tensor([S - 1])])  # noqa: E731
+        ia_c = anchors(cfg.n_coarse).to(dirs.device)
+        ia_f = anchors(cfg.n_fine).to(dirs.device)
     cmax = conservative_mask_cells(mask_map.float(), cell)
     krt = compose_krt(vb.src_K, vb.src_R, vb.src_t)
 
@@ -101,7 +123,10 @@ def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096,
         z = stratified_z(nr, fr, cfg.n_coarse)
         z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
         zf = importance_z(torch.zeros_like(z[..., : cfg.n_coarse - 2]), z_mid, cfg.n_fine)
-        z_all = torch.cat([z, zf], dim=-1)                       # (c, S)
+        if lerp_tight:
+            z_all = torch.cat([z[:, ia_c], zf[:, ia_f]], dim=-1)
+        else:
+            z_all = torch.cat([z, zf], dim=-1)                   # (c, S)
         pts = origin + d[:, None, :] * z_all[..., None]
         xy_pix, _ = project_points(pts.reshape(1, -1, 3), krt)   # (V, c*S, 2)
         xy = ndc_xy(xy_pix, W, H)
@@ -111,7 +136,15 @@ def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096,
         cx = torch.floor(px / cell).long()
         cy = torch.floor(py / cell).long()
         vals = _cell_lookup(cmax, cy, cx).reshape(V, -1, z_all.shape[-1])
-        scores.append(vals.amin(dim=0).amax(dim=-1))
+        if lerp_tight:
+            # max_pool1d pads with -inf, as reduce_window's SAME padding does
+            group = lambda v: F.max_pool1d(v, 3, stride=1, padding=1).amin(0).amax(-1)  # noqa: E731
+            n_c = ia_c.shape[0]
+            scores.append(torch.maximum(group(vals[..., :n_c]), group(vals[..., n_c:])))
+        elif lerp_mode:
+            scores.append(vals.amax(dim=-1).amin(dim=0))
+        else:
+            scores.append(vals.amin(dim=0).amax(dim=-1))
     return torch.cat(scores)
 
 

@@ -1,19 +1,22 @@
 """Full-image inference rendering.
 
-Port of `render_rays_chunked` / `render_image` from
-`keypointnerf_tpu/render/renderer.py`: all H*W rays are flattened, padded
-to a multiple of a fixed chunk and marched chunk by chunk; with
-`cull_empty_rays_ratio` < 1 only the top rays by the conservative
-empty-ray score are marched, and the rest take their exact value, zero.
+Port of `keypointnerf_tpu/render/renderer.py`: all H*W rays are
+flattened, padded to a multiple of a fixed chunk and marched chunk by
+chunk; with `cull_empty_rays_ratio` < 1 only the top rays by the
+conservative empty-ray score are marched, and the rest take their exact
+value, zero. `render_cameras_scanned` renders several cameras of one
+subject from one encoding (orbits, video); `render_images_batched`
+renders a batch of subjects.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Sequence
 
 import torch
 
 from ..geometry.cameras import camera_rays, pixel_grid
-from ..models.keypoint_nerf import KeypointNeRF, ViewBatch
+from ..models.keypoint_nerf import KeypointNeRF, ViewBatch, top_k_indices
 
 
 @torch.no_grad()
@@ -71,10 +74,9 @@ def render_rays_chunked(
     scores = empty_ray_scores(cfg, vb, origin, dirs, near, far, feats=feats)
     k = max(1, min(n, -int(-n * ratio // 1)))
     overflow = torch.clamp((scores > EMPTY_SCORE_THRESHOLD).sum() - k, min=0).float()
-    # which of several equal scores is marched differs from jax.lax.top_k;
-    # every unmarched ray is exactly zero when overflow == 0, so the
-    # outputs do not depend on it
-    sel = torch.topk(scores, k).indices
+    # jax.lax.top_k's order: the marched rays fall into the chunks they
+    # fall into in JAX, which the per-chunk top-k culls select from
+    sel = top_k_indices(scores, k)
     out_m = march(dirs[sel], near[sel], far[sel])
     # write-back: ONE packed row-gather; culled rays take the zero row
     inv = torch.full((n,), k, dtype=torch.long, device=dirs.device)
@@ -124,3 +126,53 @@ def render_image(
                               chunk=chunk, fine=fine)
     h, w = -(-height // stride), -(-width // stride)
     return {k: v.reshape((h, w) + v.shape[1:]) for k, v in out.items()}
+
+
+@torch.no_grad()
+def render_cameras_scanned(
+    model: KeypointNeRF,
+    feats,
+    vb: ViewBatch,
+    Ks,          # (F, 3, 3)
+    Rs,          # (F, 3, 3)
+    ts,          # (F, 3)
+    *,
+    height: int,
+    width: int,
+    stride: int = 1,
+    chunk: int = 4096,
+    fine: bool = True,
+):
+    """Render F target cameras of one subject from one encoding (`feats`,
+    from `KeypointNeRF.encode`). Returns the (F, H', W', 3) fine RGB (the
+    coarse RGB when not `fine`) and the scalar worst `cull_overflow` of
+    the group (0 with the cull off)."""
+    frames, worst = [], torch.zeros((), device=Ks.device)
+    for K, R, t in zip(Ks, Rs, ts):
+        out = render_image(model, dataclasses.replace(vb, tar_K=K, tar_R=R, tar_t=t),
+                           height=height, width=width, stride=stride, chunk=chunk,
+                           fine=fine, feats=feats)
+        if "cull_overflow" in out:
+            worst = torch.maximum(worst, out["cull_overflow"].max())
+        frames.append(out["rgb_fine" if fine else "rgb_coarse"])
+    return torch.stack(frames), worst
+
+
+@torch.no_grad()
+def render_images_batched(
+    model: KeypointNeRF,
+    vbs: Sequence[ViewBatch],
+    *,
+    height: int,
+    width: int,
+    stride: int = 1,
+    chunk: int = 4096,
+    fine: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Render the target cameras of B subjects, one ViewBatch each. Each
+    subject is encoded and marched on its own. Returns (B, H', W', C)
+    images."""
+    outs = [render_image(model, vb, height=height, width=width, stride=stride,
+                         chunk=chunk, fine=fine)
+            for vb in vbs]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

@@ -267,15 +267,28 @@ def test_union_path_and_cull_guards(world):
     assert 0.0 < hull < 1.0 and hull * 1.3 <= budget <= 1.0 and budget % (1 / 64) == 0
 
 
-@pytest.mark.parametrize("flag", [
-    dict(gather_lerp=True),
-    dict(coarse_topk_ratio=0.5), dict(fine_topk_ratio=0.75), dict(separate_cf=True),
-    dict(pool_mode="attention_v0"),
-])
+@pytest.mark.parametrize("flag", [dict(separate_cf=True), dict(pool_mode="attention_v0")])
 def test_unported_flags_raise(flag):
     cfg = dataclasses.replace(tm.KeypointNeRFConfig(**TINY), **flag)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.KeypointNeRF(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flag", [
+    dict(gather_lerp=True, fused_feature_map=True),
+    dict(coarse_topk_ratio=0.5), dict(fine_topk_ratio=0.75),
+])
+def test_fast_flags_build_and_render(world, flag):
+    """The fast preset's flags are ported: each builds and renders a toy
+    camera with finite outputs and the overflow guard at 0 (held against
+    the JAX package in tests/test_torch_fast.py)."""
+    model = tm.KeypointNeRF(dataclasses.replace(world["tc"], **flag), device="cpu")
+    model.load_state_dict(world["model"].state_dict())
+    out = render_image(model, world["tvb"], height=SIZE, width=SIZE, stride=2, chunk=CHUNK)
+    assert out["rgb_fine"].shape == (SIZE // 2, SIZE // 2, 3)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    assert float(out.pop("cull_overflow").max()) == 0.0
+    assert float(out["acc_fine"].max()) > 0.5
 
 
 @pytest.mark.parametrize("flag,match", [
@@ -322,8 +335,9 @@ def test_default_device_is_cuda():
 
 
 def test_port_imports_no_jax():
-    """With jax and flax made unimportable, the whole port imports and the
-    JAX package never enters sys.modules."""
+    """With jax and flax made unimportable, the whole port imports and
+    neither the JAX package nor an image or YAML library enters
+    sys.modules."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -336,8 +350,10 @@ def test_port_imports_no_jax():
         "import keypointnerf_torch.utils, keypointnerf_torch.ops._build\n"
         "import keypointnerf_torch.training, keypointnerf_torch.models.vgg\n"
         "import keypointnerf_torch.ops.dma_gather, keypointnerf_torch.ops.composite_importance\n"
+        "import keypointnerf_torch.utils.config, keypointnerf_torch.evaluation\n"
+        "import keypointnerf_torch.evaluation.run_eval\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'keypointnerf_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'keypointnerf_tpu', 'imageio', 'yaml', 'PIL')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
