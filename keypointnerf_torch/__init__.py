@@ -14,15 +14,20 @@ Layer map (each module sits where its JAX counterpart does):
   render/     chunked full-image render with the exact empty-ray cull,
               several cameras of one subject, batches of subjects
   training/   explicit train-time draws, the loss stack, the optimizer
-              step with optax's schedules, clipping and accumulation
+              step with optax's schedules, clipping and accumulation (one
+              sample or a batch), and the Trainer loop (loop.py: data
+              order, validation, checkpoints, resume, metrics)
   evaluation/ PSNR / SSIM by the reference protocol, PNG trees, the
               test-set runner
   utils/      configs/*.json -> dataclasses, weight carry from the JAX
-              parameter tree
+              parameter tree, checkpoints, the metrics stream, profiling
+  train.py    the training CLI (python -m keypointnerf_torch.train)
+  eval_zju.py re-scoring of saved PNG trees (python -m
+              keypointnerf_torch.eval_zju)
 
 The port renders with the `strict_preset` and `fast_preset` semantics
-(configs/zju_fast.json), scores renders, and trains with the
-configs/zju.json recipe. Flags it does not implement raise
+(configs/zju_fast.json), scores renders, and trains the configs/zju.json
+recipe on one device through its CLI. Flags it does not implement raise
 NotImplementedError naming their ROADMAP item.
 """
 

@@ -19,10 +19,6 @@ from ..render import render_image, suggest_cull_budget
 from .evaluator import Evaluator
 
 
-def _batch(sample, device) -> ViewBatch:
-    return ViewBatch.from_numpy({k: v for k, v in sample.items() if k != "meta"}, device=device)
-
-
 def run_eval(
     cfg,
     model: KeypointNeRF,
@@ -60,7 +56,7 @@ def run_eval(
             sample = dataset[i]
             if sample is None:
                 continue
-            vb = _batch(sample, dev)
+            vb = ViewBatch.from_numpy(sample, dev)
             H, W = vb.tar_image.shape[:2]
             feats = (model.encode(vb.src_images, vb.src_masks)
                      if model.cfg.fused_feature_map else None)
@@ -83,7 +79,7 @@ def run_eval(
         if sample is None:
             continue
         meta = sample.get("meta", {})
-        vb = _batch(sample, dev)
+        vb = ViewBatch.from_numpy(sample, dev)
         H, W = vb.tar_image.shape[:2]
         out = render_image(model, vb, height=H, width=W, stride=stride)
         if "cull_overflow" in out:

@@ -1,6 +1,6 @@
 from .keypoint_nerf import KeypointNeRF, KeypointNeRFConfig, ViewBatch, check_supported
 from .presets import FAST_CULL_BUDGET, STRICT_CULL_BUDGET, fast_preset, strict_preset
-from .vgg import VGG19Features, vgg_loss
+from .vgg import VGG19Features, load_torch_vgg19, vgg_loss
 from .spatial_encoding import (
     SpatialEncodingConfig,
     positional_encoding,
@@ -22,5 +22,6 @@ __all__ = [
     "spatial_encode",
     "spatial_encoding_dim",
     "VGG19Features",
+    "load_torch_vgg19",
     "vgg_loss",
 ]

@@ -6,7 +6,7 @@ training:
   * `encode()`       — pixel-aligned CNN features of the V source views,
                        per map plus the packed 12-ch "full" map
                        [geo_hd 8 | src RGB 3 | fg mask 1] at input res, or
-                       with `fused_feature_map` (eval) the 84-ch "fused"
+                       with `fused_feature_map` the 84-ch "fused"
                        map [coarse 64 | hd 8 | tex 8 | RGB 3 | mask 1] on
                        the input grid (or its half with `fused_map_half`).
   * `query_points()` — per-point evaluation: projection, validity, bilinear
@@ -15,8 +15,9 @@ training:
                        `gather_lerp_stride`-th sample with the others lerped
                        along the ray with `gather_lerp`; else the tex map
                        through kernel K2 when `tex_onehot_sample` at eval;
-                       the matmul-VJP lookup, with K1 for the coarse map's
-                       gradient, when `train_matmul_gather_vjp`), view dropout in
+                       the matmul-VJP lookup, with K1 for the coarse or the
+                       fused map's gradient, when `train_matmul_gather_vjp`),
+                       view dropout in
                        training, relative spatial encoding, geometry MLP
                        fusion (one launch of kernel K5 or K4 for the
                        encoding-and-MLP chain with `use_pallas_geo_mlp`)
@@ -44,9 +45,13 @@ The modules keep the original KeypointNeRF state_dict layout
 f32; `cfg.compute_dtype` is the dtype the layers compute in. Point layout
 is (V, N, C), N = rays * samples flattened.
 
-The fused map in training, `separate_cf`, the attention pools and `remat`
-are later slices: a config that needs them raises NotImplementedError
-naming the ROADMAP item.
+In training, `remat` recomputes each query's activations in the backward
+(`torch.utils.checkpoint`), and with `remat_save_gathers` keeps the query's
+map lookups out of that recompute, as the JAX model's remat policy saves its
+`kpn_gathered` values.
+
+`separate_cf` and the attention pools are later slices: a config that
+needs them raises NotImplementedError naming the ROADMAP item.
 `pallas_interpret` is a config field the port ignores.
 """
 from __future__ import annotations
@@ -59,6 +64,7 @@ from typing import Any, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..geometry.aabb import ray_aabb_intersection
@@ -189,8 +195,6 @@ def check_supported(cfg: KeypointNeRFConfig) -> None:
     unported = [
         (cfg.separate_cf, "separate_cf", "Queue 1 item 2 (model remainder)"),
         (bool(cfg.pool_mode), f"pool_mode={cfg.pool_mode!r}", "Queue 1 item 2 (AttentionPool)"),
-        (cfg.remat, "remat", "Queue 1 item 1 (remat)"),
-        (cfg.remat_save_gathers, "remat_save_gathers", "Queue 1 item 1 (remat)"),
     ]
     for on, flag, item in unported:
         if on:
@@ -255,10 +259,11 @@ class ViewBatch:
 
     @classmethod
     def from_numpy(cls, sample, device: DeviceLike = None) -> "ViewBatch":
-        """A dict of numpy arrays (e.g. data.make_sample) on `device`."""
+        """A dict of numpy arrays (e.g. data.make_sample) on `device`; a
+        dataset's "meta" entry (ids for the PNG tree) is left out."""
         dev = resolve_device(device)
         return cls(**{k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
-                      for k, v in sample.items()})
+                      for k, v in sample.items() if k != "meta"})
 
     def to(self, device) -> "ViewBatch":
         return ViewBatch(**{f.name: getattr(self, f.name).to(device)
@@ -338,9 +343,11 @@ class KeypointNeRF(nn.Module):
           lookup; Hm, Wm = H, W, or H // 2, W // 2 with `fused_map_half`
           and min(H, W) >= `fused_map_half_min_side` (hires / RGB / mask
           then resampled onto the half grid by one lookup). The JAX model
-          pads it to 128 channels for K3's DMA slices on the TPU; the port
-          leaves it at 84 (csrc/dma_gather.cu reads any C). Eval only:
-          `train=True` raises NotImplementedError;
+          pads it to 128 channels at eval for K3's DMA slices on the TPU;
+          the port leaves it at 84 (csrc/dma_gather.cu reads any C). In
+          training with `train_matmul_gather_vjp` the upsampling lookups
+          take the matmul VJP with the plain map gradient (the JAX model's
+          XLA scan; K1 serves only the query's lookups);
         * otherwise "full" (V, H, W, 12) = [hires | src RGB | mask].
 
         Gradients flow when autograd is on.
@@ -363,10 +370,6 @@ class KeypointNeRF(nn.Module):
         if not self.cfg.fused_feature_map:
             feats["full"] = hd_rgb_mask
             return feats
-        if train:
-            raise NotImplementedError(
-                "fused_feature_map in training is not ported yet: ROADMAP Queue 1 "
-                "item 8 (the fused map in training)")
         V, H, W = src_images.shape[:3]
         half = (self.cfg.fused_map_half
                 and min(H, W) >= self.cfg.fused_map_half_min_side)
@@ -375,10 +378,12 @@ class KeypointNeRF(nn.Module):
         xy = torch.stack([2.0 * grid[:, 0] / (Wm - 1.0) - 1.0,
                           2.0 * grid[:, 1] / (Hm - 1.0) - 1.0], dim=-1)
         xy = xy[None].expand(V, -1, -1)
-        up_coarse = multiview_bilinear_sample(feats["geo"][0], xy).reshape(V, Hm, Wm, -1)
-        up_tex = multiview_bilinear_sample(feats["tex"], xy).reshape(V, Hm, Wm, -1)
+        up = (multiview_bilinear_sample_mm if train and self.cfg.train_matmul_gather_vjp
+              else multiview_bilinear_sample)
+        up_coarse = up(feats["geo"][0], xy).reshape(V, Hm, Wm, -1)
+        up_tex = up(feats["tex"], xy).reshape(V, Hm, Wm, -1)
         if half:
-            hd_rgb_mask = multiview_bilinear_sample(hd_rgb_mask, xy).reshape(V, Hm, Wm, -1)
+            hd_rgb_mask = up(hd_rgb_mask, xy).reshape(V, Hm, Wm, -1)
         # [coarse | hd | tex | rgb | mask]: query_points slices by this layout
         hd_ch = self.cfg.geo_out_ch_hd
         feats["fused"] = torch.cat(
@@ -397,11 +402,18 @@ class KeypointNeRF(nn.Module):
         kept), applied when `train` and V > 1. Returns f32 sdf (N, 1),
         rad (N, 1), rgb (N, 3) and valid (N, 1).
         """
+        looked = self.lookup_points(pts, feats, vb, n_samples, train)
+        return self.query_head(pts, view_dirs, vb, looked, train, view_keep)
+
+    def lookup_points(self, pts, feats, vb: ViewBatch, n_samples: int, train: bool = False):
+        """The query's first half: the points projected into the V source
+        views, the frustum mask and every map lookup. Returns a dict of
+        (V, N, .) tensors: xy, zn, mask, feat_coarse, feat_hd, feat_xy,
+        img_xy, fg (the JAX model's `kpn_gathered` values are the last
+        five)."""
         c = self.cfg
-        V = vb.src_images.shape[0]
         H, W = vb.src_images.shape[1:3]
         N = pts.shape[0]
-        cdt = c.compute_dtype
 
         krt = compose_krt(vb.src_K, vb.src_R, vb.src_t)   # (V, 4, 4)
         xy_pix, z = project_points(pts[None], krt)         # (V, N, 2), (V, N, 1)
@@ -425,7 +437,9 @@ class KeypointNeRF(nn.Module):
         if "fused" in feats:
             # one lookup of the packed map gives every per-point feature;
             # the lerp is off under K3, as in the JAX model (the cull's
-            # bound still follows `gather_lerp` alone, render/empty_cull.py)
+            # bound still follows `gather_lerp` alone, render/empty_cull.py).
+            # In training the matmul-VJP lookup of all 84 channels sends the
+            # map gradient through K1
             dma = c.use_dma_gather and not train
             lerp = (c.gather_lerp and not train and not dma
                     and n_samples > c.gather_lerp_stride >= 2 and N % n_samples == 0)
@@ -456,6 +470,26 @@ class KeypointNeRF(nn.Module):
             feat_hd = mvbs(feats["geo"][1], xy)
             img_xy = multiview_bilinear_sample(vb.src_images, xy)
             fg = multiview_bilinear_sample(vb.src_masks, xy)
+        if feat_coarse is None:
+            feat_coarse = mvbs(feats["geo"][0], xy)
+        if feat_xy is None and c.tex_onehot_sample and not train:
+            feat_xy = multiview_onehot_bilinear_sample(feats["tex"], xy)  # K2
+        elif feat_xy is None:
+            feat_xy = mvbs(feats["tex"], xy)
+        return dict(xy=xy, zn=zn, mask=mask, feat_coarse=feat_coarse, feat_hd=feat_hd,
+                    feat_xy=feat_xy, img_xy=img_xy, fg=fg)
+
+    def query_head(self, pts, view_dirs, vb: ViewBatch, looked, train: bool = False,
+                   view_keep=None):
+        """The query's second half, from the looked-up values (`looked`,
+        from `lookup_points`): validity, view dropout, border weights, the
+        spatial encoding, the geometry MLP and the IBR color head."""
+        c = self.cfg
+        V = vb.src_images.shape[0]
+        N = pts.shape[0]
+        cdt = c.compute_dtype
+        xy, zn, mask, fg = looked["xy"], looked["zn"], looked["mask"], looked["fg"]
+        feat_coarse, feat_hd = looked["feat_coarse"], looked["feat_hd"]
 
         # all views must land on the foreground
         all_valid = (mask > 0.0).all(dim=0)
@@ -474,13 +508,6 @@ class KeypointNeRF(nn.Module):
         pw = pw[..., 0:1] * pw[..., 1:2] * pw[..., 2:3]
         pw = pw * mask
         pw = (pw / (pw.sum(dim=0, keepdim=True) + 1e-6)).detach()
-
-        if feat_coarse is None:
-            feat_coarse = mvbs(feats["geo"][0], xy)
-        if feat_xy is None and c.tex_onehot_sample and not train:
-            feat_xy = multiview_onehot_bilinear_sample(feats["tex"], xy)  # K2
-        elif feat_xy is None:
-            feat_xy = mvbs(feats["tex"], xy)
 
         # relative spatial encoding
         pts_cam = world_to_cam(pts[None], vb.src_R, vb.src_t)       # (V, N, 3)
@@ -513,7 +540,8 @@ class KeypointNeRF(nn.Module):
         # color
         latent24 = dense(self.ibr_compress_gfeat, latent_fused, cdt)
         latent24 = latent24[None].expand(V, N, c.gcompress_out)
-        rgb_feat = torch.cat([img_xy.to(cdt), feat_xy.to(cdt), latent24], dim=-1)
+        rgb_feat = torch.cat([looked["img_xy"].to(cdt), looked["feat_xy"].to(cdt), latent24],
+                             dim=-1)
 
         cam_pos = camera_center(vb.src_R, vb.src_t)                 # (V, 3)
         cam_rays = pts[None] - cam_pos[:, None, :]
@@ -528,15 +556,32 @@ class KeypointNeRF(nn.Module):
         return (out[..., 0:1].float(), out[..., 1:].float(), rgb.float(),
                 valid.float())
 
+    def _query(self, pts, view_dirs, feats, vb, n_samples, train, view_keep):
+        """`query_points`, or in training with `remat` the same query with
+        its activations recomputed in the backward instead of kept (JAX's
+        `nn.remat`); with `remat_save_gathers` the lookups run outside the
+        recompute, so their outputs are kept (JAX's policy saving the
+        `kpn_gathered` values). The draws are tensors, so the recompute
+        repeats the forward exactly."""
+        c = self.cfg
+        kw = dict(train=train, view_keep=view_keep)
+        if not (train and c.remat):
+            return self.query_points(pts, view_dirs, feats, vb, n_samples, **kw)
+        ckpt = functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False)
+        if c.remat_save_gathers:
+            looked = self.lookup_points(pts, feats, vb, n_samples, train)
+            return ckpt(self.query_head, pts, view_dirs, vb, looked, **kw)
+        return ckpt(self.query_points, pts, view_dirs, feats, vb, n_samples, **kw)
+
     def _eval_density(self, pts, view_dirs, feats, vb, n_samples, draws=None):
         """Background sdf substitution, the training radiance noise (the
         query's `noise` draw, already scaled by `rand_noise_std`) and
         alpha = valid * relu(rad). `draws` (a `QueryDraws`) is given in
         training and None at eval."""
         train = draws is not None
-        sdf, rads, rgb, valid = self.query_points(
-            pts, view_dirs, feats, vb, n_samples, train=train,
-            view_keep=draws.view_keep if train else None)
+        sdf, rads, rgb, valid = self._query(
+            pts, view_dirs, feats, vb, n_samples, train,
+            draws.view_keep if train else None)
         rad = rads[..., 0:1]
         sdf = valid * sdf + (1.0 - valid) * self.cfg.bkg_sdf
         if train and self.cfg.rand_noise_std > 0.0:

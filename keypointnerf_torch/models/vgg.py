@@ -8,7 +8,8 @@ target. Inputs are NHWC in [0, 1] at the module's edge, as in JAX.
 
 No pretrained weights ship with the repository, so `VGG19Features` is
 built with seeded random weights and frozen (`requires_grad_(False)`);
-`utils.convert.vgg_params_from_jax` loads the JAX package's parameters.
+`load_torch_vgg19` loads a torchvision vgg19 state_dict file into it and
+`utils.convert.vgg_params_from_jax` the JAX package's parameters.
 The layers compute in f32.
 """
 from __future__ import annotations
@@ -32,6 +33,8 @@ SLICES: Sequence[Sequence[int]] = (
     (256, 256, 256, 512),
 )
 LOSS_WEIGHTS = (1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
+# torchvision's vgg19 `features.{i}` index of each of those convs
+TORCH_CONV_INDEX = (0, 2, 5, 7, 10, 12, 14, 16, 19)
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -79,6 +82,22 @@ class VGG19Features(nn.Module):
                 prev = w
             outs.append(x)
         return outs
+
+
+def load_torch_vgg19(path: str, device: DeviceLike = None) -> VGG19Features:
+    """A frozen `VGG19Features` (the real widths) with the weights of a
+    torchvision vgg19 state_dict file (`features.{i}.weight / bias`, or a
+    saved module)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    vgg = VGG19Features(device=device)
+    names = [f"conv_{si}_{wi}" for si, widths in enumerate(SLICES) for wi in range(len(widths))]
+    with torch.no_grad():
+        for name, idx in zip(names, TORCH_CONV_INDEX, strict=True):
+            vgg.convs[name].weight.copy_(sd[f"features.{idx}.weight"])
+            vgg.convs[name].bias.copy_(sd[f"features.{idx}.bias"])
+    return vgg
 
 
 def vgg_loss(vgg: VGG19Features, pred, target):

@@ -6,10 +6,13 @@ from .train import (
     apply_gradients,
     clip_by_global_norm,
     create_train_state,
+    eval_batch_step_fn,
     eval_step_fn,
     global_norm,
     make_lr,
     make_optimizer,
+    step_generator,
+    train_batch_step_fn,
     train_step_fn,
 )
 
@@ -23,10 +26,13 @@ __all__ = [
     "TrainState",
     "clip_by_global_norm",
     "create_train_state",
+    "eval_batch_step_fn",
     "eval_step_fn",
     "global_norm",
     "make_lr",
     "make_optimizer",
+    "step_generator",
+    "train_batch_step_fn",
     "train_step_fn",
     "apply_gradients",
 ]

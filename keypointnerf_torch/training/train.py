@@ -17,13 +17,19 @@ mutable `TrainState` around a torch optimizer:
     mini-step; the other mini-steps leave the parameters as they are.
 
 The step takes its random draws explicitly (`training.draws.TrainDraws`).
+`train_batch_step_fn` / `eval_batch_step_fn` are the single-device
+counterparts of the JAX package's batched steps
+(`parallel/train_parallel.py:make_batch_step_fn`, `make_sharded_eval_step`):
+B samples, the mean of their totals and loss terms, one update; and the
+weighted sums of validation loss terms.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..models.keypoint_nerf import KeypointNeRF, ViewBatch
@@ -114,6 +120,22 @@ class TrainState:
     acc_grads: Optional[list] = None       # MultiSteps running mean
     mini_step: int = 0
 
+    def state_dict(self) -> dict:
+        """What a checkpoint keeps: the model's and the optimizer's
+        state_dicts and the counters (the VGG is frozen and not saved)."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "updates": self.updates, "mini_step": self.mini_step,
+                "acc_grads": self.acc_grads}
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore what `state_dict` gave, onto the model's device."""
+        self.model.load_state_dict(d["model"])
+        self.optimizer.load_state_dict(d["optimizer"])
+        self.step, self.updates, self.mini_step = d["step"], d["updates"], d["mini_step"]
+        self.acc_grads = (None if d["acc_grads"] is None
+                          else [g.to(p.device) for g, p in zip(d["acc_grads"],
+                                                               self.model.parameters())])
+
 
 def create_train_state(model: KeypointNeRF, optim_cfg: OptimConfig = OptimConfig(),
                        vgg: Optional[VGG19Features] = None) -> TrainState:
@@ -157,21 +179,42 @@ def apply_gradients(state: TrainState, params, grads) -> None:
     state.mini_step = (n + 1) % k
 
 
-def train_step_fn(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainState,
-                  vb: ViewBatch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
-    """One optimizer step (or accumulation mini-step) on one sample; updates
-    `state` in place and returns the detached loss terms plus grad_norm
-    (the global norm of this step's raw gradients)."""
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one step's draws on `device`, seeded by (seed,
+    step), as the JAX step folds its step count into the run's key: a
+    resumed run draws what an unbroken run draws."""
+    state = np.random.SeedSequence((seed, step)).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(int(state[0]) << 32 | int(state[1]))
+
+
+def train_batch_step_fn(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainState,
+                        batch: Sequence[ViewBatch], draws: Sequence[TrainDraws]
+                        ) -> Dict[str, torch.Tensor]:
+    """One optimizer step (or accumulation mini-step) on B samples, with one
+    `TrainDraws` each: the mean of the per-sample totals is differentiated,
+    the loss terms are the per-sample means, and grad_norm is the global
+    norm of the raw gradients. Updates `state` in place and returns the
+    detached terms."""
     params = list(model.parameters())
-    out = model(vb, train=True, draws=draws)
-    total, err = compute_losses(out, loss_cfg, state.vgg)
+    totals, errs = [], []
+    for vb, d in zip(batch, draws, strict=True):
+        total, err = compute_losses(model(vb, train=True, draws=d), loss_cfg, state.vgg)
+        totals.append(total)
+        errs.append(err)
+    total = torch.stack(totals).mean()
     grads = torch.autograd.grad(total, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    err = {k: v.detach() for k, v in err.items()}
+    err = {k: torch.stack([e[k] for e in errs]).mean().detach() for k in errs[0]}
     err["grad_norm"] = global_norm(grads).detach()
     apply_gradients(state, params, grads)
     state.step += 1
     return err
+
+
+def train_step_fn(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainState,
+                  vb: ViewBatch, draws: TrainDraws) -> Dict[str, torch.Tensor]:
+    """`train_batch_step_fn` on one sample."""
+    return train_batch_step_fn(model, loss_cfg, state, [vb], [draws])
 
 
 @torch.no_grad()
@@ -182,3 +225,18 @@ def eval_step_fn(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainState,
     out = model(vb, train=True, draws=draws)
     _, err = compute_losses(out, loss_cfg, state.vgg)
     return err
+
+
+@torch.no_grad()
+def eval_batch_step_fn(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainState,
+                       batch: Sequence[ViewBatch], weights: Sequence[float],
+                       draws: Sequence[TrainDraws]):
+    """Validation on B samples: ({k: sum_i w_i * err_i[k]}, sum_i w_i), the
+    caller dividing the sums of all its batches by the summed weights
+    (weight 0 marks a filler sample)."""
+    sums = None
+    for vb, w, d in zip(batch, weights, draws, strict=True):
+        err = eval_step_fn(model, loss_cfg, state, vb, d)
+        sums = ({k: w * v for k, v in err.items()} if sums is None
+                else {k: sums[k] + w * v for k, v in err.items()})
+    return sums, float(sum(weights))

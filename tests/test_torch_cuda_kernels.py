@@ -13,7 +13,7 @@ Bounds are chip_smoke.py's: K2 bit-equal in bf16 and within 1e-6 in f32
 (each lerp rounded as the plain version rounds it); K4 / K5 with bf16
 products within 5e-3 (worst) and 1e-6 (mean) of each output's largest
 entry, `valid` exact; K1 within 1e-5 of max|dmap| and, as bf16, one ulp
-except near zero; K6 1e-6 (depth and sdf 5e-6), z_fine within two bins.
+except near zero (also at the fused map's 512² x 84 training shape); K6 1e-6 (depth and sdf 5e-6), z_fine within two bins.
 The channel counts reach every piece width of the
 lookup kernels (`feat_sample.piece_bytes`): 16 bytes (8 bf16, 84 or 8
 f32), 8 bytes (84 bf16, 6 f32) and single channels (37, 5); a map offset
@@ -176,19 +176,13 @@ def _dmap_points(rs, V, N, spread):
     return xy
 
 
-@pytest.mark.parametrize("shape", [(128, 128, 64, 50_000), (33, 17, 40, 5_000)],
-                         ids=["128x128x64", "33x17x40"])
-@pytest.mark.parametrize("spread", ["uniform", "clustered"])
-@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_dmap_kernel_matches_plain_on_card(dev, dtype, g_dtype, spread, shape):
+def _check_dmap(dev, H, W, C, N, spread, dtype, g_dtype):
     """K1 against its plain version, chip_smoke.py's bounds: within 1e-5 of
     max|dmap| (the kernel sums each cell's terms in another order), and as
     bf16 at most one ulp apart except where that difference is itself
     within the f32 bound (near zero)."""
     from keypointnerf_torch.ops import onehot_dmap as k1
 
-    H, W, C, N = shape
     rs = np.random.default_rng(N + C)
     xy = torch.as_tensor(_dmap_points(rs, 3, N, spread).astype(np.float32), device=dev)
     g = torch.as_tensor(rs.normal(size=(3, N, C)).astype(np.float32), device=dev)
@@ -206,6 +200,23 @@ def test_dmap_kernel_matches_plain_on_card(dev, dtype, g_dtype, spread, shape):
     gb, rb = got.to(torch.bfloat16), ref.to(torch.bfloat16)
     near_zero = (gb.float() - rb.float()).abs() <= tol
     assert not bool((_bf16_ulps_apart(gb, rb) & ~near_zero).any())
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 64, 50_000), (33, 17, 40, 5_000)],
+                         ids=["128x128x64", "33x17x40"])
+@pytest.mark.parametrize("spread", ["uniform", "clustered"])
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dmap_kernel_matches_plain_on_card(dev, dtype, g_dtype, spread, shape):
+    _check_dmap(dev, *shape, spread, dtype, g_dtype)
+
+
+@pytest.mark.parametrize("spread", ["uniform", "clustered"])
+def test_dmap_kernel_at_fused_map_shape(dev, spread):
+    """K1 where the fused map in training sends it: the 3 x 512² x 84 map
+    of the synthetic 512² rig, bf16 terms and cotangent, the coarse query's
+    262,144 points a view (64 channels in one chunk, 20 in the tail)."""
+    _check_dmap(dev, 512, 512, 84, 262_144, spread, "bfloat16", "bfloat16")
 
 
 # ------------------------------------------------------------------ K6

@@ -254,7 +254,9 @@ def test_fused_cull_exact_and_scores_match_jax(world):
 
 def test_fused_map_guards(world):
     """Scores without `feats` under `fused_feature_map` are a ValueError in
-    both packages; the fused map in training is not ported yet."""
+    both packages; in training (ported since, held against JAX by
+    tests/test_torch_fused_train.py) encode builds the same fused map as at
+    eval, with a gradient path to the encoders."""
     tc, tvb, jc, jvb = world["tc"], world["tvb"], world["jc"], world["jvb"]
     pix = pixel_grid(SIZE, SIZE).float()
     rays = camera_rays(pix, tvb.tar_K, tvb.tar_R, tvb.tar_t, tc.znear, tc.zfar)
@@ -264,8 +266,11 @@ def test_fused_map_guards(world):
         jax_scores(jc, jvb, *(jnp.asarray(x.numpy()) for x in rays))
     with pytest.raises(ValueError, match="feats"):
         suggest_cull_budget(tc, tvb, [(tvb.tar_K, tvb.tar_R, tvb.tar_t)], SIZE, SIZE)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        world["model"].encode(tvb.src_images, tvb.src_masks, train=True)
+    model = world["model"]
+    train = model.encode(tvb.src_images, tvb.src_masks, train=True)["fused"]
+    with torch.no_grad():
+        assert torch.equal(train, model.encode(tvb.src_images, tvb.src_masks)["fused"])
+    assert train.requires_grad
 
 
 @pytest.mark.cuda

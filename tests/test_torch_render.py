@@ -310,13 +310,13 @@ def test_fused_geo_mlp_refuses_what_jax_refuses(flag, match):
 
 
 def test_training_calls_raise(world):
-    """Training is ported except rematerialization: a config with remat or
-    remat_save_gathers raises, and a training forward without its draws
+    """Training is ported with rematerialization: a config with remat or
+    remat_save_gathers builds (held against the step without them by
+    tests/test_torch_fused_train.py); a training forward without its draws
     raises rather than drawing on its own."""
     for flag in ("remat", "remat_save_gathers"):
         cfg = dataclasses.replace(tm.KeypointNeRFConfig(**TINY), **{flag: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-            tm.KeypointNeRF(cfg, device="cpu")
+        assert getattr(tm.KeypointNeRF(cfg, device="cpu").cfg, flag)
     with pytest.raises(ValueError, match="TrainDraws"):
         world["model"](world["tvb"], train=True)
 
