@@ -109,7 +109,32 @@ Phases (any failure exits nonzero):
      step (2 samples, finite PSNR / SSIM) and eval_zju on its PNG tree
      (within PNG rounding); the loop's s/step and the host's share making
      samples printed beside the bare step's;
- 10. prints the kernels line, the card line and, last, the result line.
+ 10. model_rest: the rest of the model at full width: K5 at separate_cf's
+     3 outputs against its plain version at the strict render's coarse and
+     fine (union) queries, on the wgmma route, timed with its bound; the
+     512² strict camera with pool_mode attention_v0 and attention_v1, with
+     separate_cf (culled == unculled bit for bit) and with separate_cf and
+     use_pallas_geo_mlp (K5 48 launches at 3 outputs, held against the
+     flag-off render by compare_renders' bounds); 1 + 2 zju steps with
+     attention_v1 and separate_cf (finite, s/step); toy f32 renders and a
+     step card vs CPU with both flags;
+ 11. parallel: the zju step in a one-rank NCCL group (the all-reduced
+     gradients and terms bit-equal to the step's own, the parameters to
+     the update without a group; s/step with and without); the
+     one-process step on a global batch of 2, twice (the atomics' floor);
+     then 2 ranks (torch.multiprocessing; gloo on one card, chosen and
+     printed, NCCL where there are two cards): 2 + 3 data-parallel zju
+     steps at local batch 1 (one gradient all-reduce of the parameter
+     bytes and one of the loss terms a step, K1 twice a sample, the
+     parameters bit-equal across ranks after every step, s/step and peak
+     memory, the first step held against the one-process global batch by
+     the floor's bounds), the 512² strict camera sharded over the ranks
+     (against the single-process render, one gather, K2 48 launches in
+     all, cull_overflow 0 in each rank's rays), the Trainer (2 steps with
+     a val and a checkpoint, a resume bit-equal to the saved state, to 4;
+     rank 0 alone writes) and run_eval(sharded=True) on 2 samples (scores
+     equal to the unsharded run's); each phase's seconds printed;
+ 12. prints the kernels line, the card line and, last, the result line.
 
 `--phases kernels,render,...` runs a subset while developing (the result
 line is printed only by a full run).
@@ -980,7 +1005,7 @@ def geo_mlp_op_counts() -> dict:
     return {k: (w / 2, m / 2) for k, (w, m, _) in out.items()}
 
 
-def geo_mlp_bound(N, V, K, with_enc, ops, n_bytes) -> dict:
+def geo_mlp_bound(N, V, K, with_enc, ops, n_bytes, dims2=GEO_DIMS2) -> dict:
     """The least time of one K4 / K5 call at the zju widths: the largest of
     its bytes at the HBM rate, its products at the bf16 tensor rate, its
     f32 work at the f32 issue rate (every instruction of the code the
@@ -988,7 +1013,7 @@ def geo_mlp_bound(N, V, K, with_enc, ops, n_bytes) -> dict:
     operations) and the part of it on the MUFU / conversion pipe at that
     pipe's rate."""
     d = dict(zip(("dsp", "h1", "h2", "h3", "dl"), GEO_DIMS1))
-    g0, g1, g2, do = GEO_DIMS2
+    g0, g1, g2, do = dims2
     c0, c1 = GEO_SKIP
     per_vp = (d["dsp"] + c0) * d["h1"] + d["h1"] * d["h2"] + (d["h2"] + c1) * d["h3"] \
         + d["h3"] * d["dl"]
@@ -1453,6 +1478,10 @@ def render_full_width(dev):
 # The bounds are each render's own: (mean, share), measured and doubled.
 K5_RENDER_BOUNDS = (3e-4, 4e-4)      # 512² K5: measured 1.15e-4, 1.64e-4 (acc_fine)
 K4_RENDER_BOUNDS = (1.5e-4, 6e-5)    # 256² rel_z K4: 6.89e-5 (acc_fine), 2.54e-5 (rgb_fine)
+# 512² separate_cf K5 (3 outputs): the fine pass evaluates the 128-depth
+# union with rad_f, twice the samples a ray in which an activation can
+# round the other way: measured 1.56e-4 (sdf_fine), 5.38e-4 (rgb_fine)
+K5_SEPARATE_CF_RENDER_BOUNDS = (3.5e-4, 1.1e-3)
 
 
 def compare_renders(ref, got, what, bounds):
@@ -2087,9 +2116,10 @@ def agreement_fast(dev) -> None:
         raise SystemExit("toy fast render on the card disagrees with the CPU render")
 
 
-def agreement_small(dev, **overrides) -> None:
+def agreement_small(dev, radiance_bias=0.0, **overrides) -> None:
     """Toy f32 strict render on the card vs the same render on the CPU
-    (`overrides` are config fields, e.g. use_pallas_geo_mlp=True)."""
+    (`overrides` are config fields, e.g. use_pallas_geo_mlp=True;
+    `radiance_bias` is added to every radiance channel's bias)."""
     from keypointnerf_torch.data import SyntheticConfig, make_sample
     from keypointnerf_torch.models import KeypointNeRF, KeypointNeRFConfig, ViewBatch, strict_preset
     from keypointnerf_torch.render import render_image
@@ -2103,6 +2133,7 @@ def agreement_small(dev, **overrides) -> None:
     outs = {}
     for d in (dev, torch.device("cpu")):
         model = KeypointNeRF(cfg, device=d, seed=0)
+        model.mlp_geo.layers2.layers[-1].linear.bias.data[1:] += radiance_bias
         outs[d.type] = render_image(model, ViewBatch.from_numpy(sample, device=d),
                                     height=32, width=32, chunk=256)
     worst = 0.0
@@ -2154,7 +2185,8 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
                               device=dev)
     model = KeypointNeRF(cfg, device=dev, seed=0)
     # as in the render phase: radiance > 0 somewhere, so every term trains
-    model.mlp_geo.layers2.layers[-1].linear.bias.data[1] += 2.0
+    # (with separate_cf both radiance channels, coarse and fine)
+    model.mlp_geo.layers2.layers[-1].linear.bias.data[1:] += 2.0
     vgg = VGG19Features(device=dev, seed=42)                 # full width, random, frozen
     recipe = load_config(str(ZJU_CONFIG))                 # its loss and optim sections
     loss_cfg = recipe.loss
@@ -2241,8 +2273,11 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
     # the geometry MLP's parameters get their gradients through the fused
     # call's recompute backward when use_pallas_geo_mlp is on; both
     # encoders train (through the upsampling lookups with the fused map)
+    # (attention_v1's key bias shifts every view's logit alike, which the
+    # renormalisation cancels: its gradient is zero in exact arithmetic)
     stuck = [n for (n, p), b in zip(model.named_parameters(), before)
-             if n.startswith("mlp_geo.") and torch.equal(b, p)]
+             if n.startswith("mlp_geo.") and n != "mlp_geo.pool.k_proj.bias"
+             and torch.equal(b, p)]
     if stuck:
         raise SystemExit(f"geometry MLP parameters did not change: {stuck}")
     for prefix in ("geo_encoder.", "tex_encoder."):
@@ -2305,9 +2340,10 @@ REMAT_GRAD_NORM_BOUND = 2.5e-3  # 2.7e-4, 4.3e-5; 4.0e-4, 5.2e-5, 1.1e-4
 REMAT_LEAF_BOUND = 3.5e-2       # 1.37e-2, 1.62e-2; 1.23e-2, 1.57e-2, 1.37e-2
 
 
-def compare_first_step_grads(off, run, what) -> None:
-    """`run`'s first step (loss terms, the gradient) against the remat-off
-    run `off`'s, and their peak memory and s/step."""
+def compare_first_step_grads(off, run, what, loss_bound=REMAT_LOSS_BOUND) -> None:
+    """`run`'s first step (loss terms, the gradient) against the reference
+    run `off`'s (remat off, or one process), and their peak memory and
+    s/step."""
     loss = max(abs(run["first"][k] - v) / max(abs(v), 1e-12)
                for k, v in off["first"].items() if k != "grad_norm")
     top = max(g.abs().max().item() for g in off["grads"].values())
@@ -2325,18 +2361,19 @@ def compare_first_step_grads(off, run, what) -> None:
     l2 = math.sqrt(num / den)
     gn = abs(run["first"]["grad_norm"] - off["first"]["grad_norm"]) / off["first"]["grad_norm"]
     worst = max(rows)[0]
-    print(f"first zju step, {what} vs the first remat-off run: loss terms {loss:.3e} relative "
-          f"(bound {REMAT_LOSS_BOUND}); gradient relative L2 {l2:.3e} (bound {REMAT_GRAD_L2_BOUND}), "
+    print(f"first zju step, {what} vs the reference run: loss terms {loss:.3e} relative "
+          f"(bound {loss_bound}); gradient relative L2 {l2:.3e} (bound {REMAT_GRAD_L2_BOUND}), "
           f"grad_norm {gn:.3e} (bound {REMAT_GRAD_NORM_BOUND}), worst of {len(rows)} leaves "
           f"{worst:.3e} of its max (bound {REMAT_LEAF_BOUND}): "
           f"{[(f'{r:.2e}', n) for r, n in sorted(rows, reverse=True)[:3]]}", flush=True)
-    print(f"{what}: {run['s_per_step']:.4f} s/step, peak {run['peak_bytes']} bytes "
-          f"({run['peak_bytes'] / 2**30:.2f} GiB), {run['device_ms']:.3f} ms of kernel time; "
-          f"remat off {off['s_per_step']:.4f} s/step, {off['peak_bytes']} bytes "
-          f"({off['peak_bytes'] / 2**30:.2f} GiB), {off['device_ms']:.3f} ms", flush=True)
-    if not (loss <= REMAT_LOSS_BOUND and l2 <= REMAT_GRAD_L2_BOUND
+    if "device_ms" in run:
+        print(f"{what}: {run['s_per_step']:.4f} s/step, peak {run['peak_bytes']} bytes "
+              f"({run['peak_bytes'] / 2**30:.2f} GiB), {run['device_ms']:.3f} ms of kernel "
+              f"time; remat off {off['s_per_step']:.4f} s/step, {off['peak_bytes']} bytes "
+              f"({off['peak_bytes'] / 2**30:.2f} GiB), {off['device_ms']:.3f} ms", flush=True)
+    if not (loss <= loss_bound and l2 <= REMAT_GRAD_L2_BOUND
             and gn <= REMAT_GRAD_NORM_BOUND and worst <= REMAT_LEAF_BOUND):
-        raise SystemExit(f"the {what} step deviates from the step without remat")
+        raise SystemExit(f"{what} deviates from the reference step")
 
 
 TRAINER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
@@ -2453,10 +2490,11 @@ def trainer_cli(bare_s_per_step) -> None:
           f"clock", flush=True)
 
 
-def train_agreement_small(dev, **overrides) -> None:
+def train_agreement_small(dev, radiance_bias=0.0, **overrides) -> None:
     """One toy f32 zju-recipe step on the card against the same step on the
     CPU (the path the CPU tests hold against the JAX package); `overrides`
-    are config fields, e.g. use_pallas_geo_mlp=True."""
+    are config fields, e.g. use_pallas_geo_mlp=True; `radiance_bias` is
+    added to every radiance channel's bias."""
     from keypointnerf_torch.data import SyntheticConfig, make_sample
     from keypointnerf_torch.models import KeypointNeRF, VGG19Features, ViewBatch
     from keypointnerf_torch.training import (
@@ -2474,6 +2512,7 @@ def train_agreement_small(dev, **overrides) -> None:
     for d in (dev, cpu):
         vb = ViewBatch.from_numpy(sample, device=d)
         model = KeypointNeRF(cfg, device=d, seed=0)
+        model.mlp_geo.layers2.layers[-1].linear.bias.data[1:] += radiance_bias
         vgg = VGG19Features(((4,), (4, 8), (8, 8), (8, 8, 8, 16)), device=d)
         dr = draws.to(d)
         total, err = compute_losses(model(vb, train=True, draws=dr), LossConfig(), vgg)
@@ -2527,7 +2566,649 @@ def train_agreement_small(dev, **overrides) -> None:
         raise SystemExit("the card's training step disagrees with the CPU's")
 
 
-PHASES = ("kernels", "render", "fast", "agreement", "train", "train_agreement", "trainer")
+# ------------------------------------------------- the rest of the model
+# the synthetic rig's image size for the new phases' renders, steps, the
+# Trainer and the eval
+RIG = 512
+
+
+def strict_query_launches(n_rays, ratio=0.1875, chunk=2048) -> int:
+    """A query kernel's launches in the strict render of `n_rays` rays
+    culled to `ratio`: two queries (coarse, fine) a chunk of the marched
+    rays (the renderer's budget arithmetic; chunks of min(chunk, n_rays),
+    as a sharded render's share takes them)."""
+    marched = max(1, min(n_rays, -int(-n_rays * ratio // 1)))
+    return 2 * math.ceil(marched / min(chunk, n_rays))
+# K5 with separate_cf's three outputs [sdf, rad_c, rad_f] at the strict
+# render's query: the coarse query (2048 rays x 64 samples) and, since the
+# coarse-value reuse is off under separate_cf, the fine query over the
+# union (2048 x 128); the bf16 bounds of check_fused_geo_mlp (worst 5e-3,
+# mean 1e-6 of an output's max).
+DOUT3_DIMS2 = GEO_DIMS2[:-1] + (GEO_DIMS2[-1] + 1,)
+
+
+def check_k5_three_outputs(dev) -> dict:
+    """K5 at 3 outputs against its plain version, bf16 products, with its
+    time, the plain version's and the bound; returns those numbers."""
+    from keypointnerf_torch.ops import fused_geo_mlp as fg
+
+    mlp = seeded_geo_mlp(dev, seed=5, dims2=DOUT3_DIMS2)
+    with torch.no_grad():
+        ws = [w.clone() for w in fg.fold_weight_norm(mlp)]
+    V, K, bf = 3, 24, torch.bfloat16
+    names = ("out", "valid", "latent_view", "latent_fused")
+    res = {}
+    for N in (2048 * 64, 2048 * 128):
+        x = geo_mlp_inputs(dev, N, seed=N + 3)
+        lead, rest = (x["pts_cam"], x["kpt_cam"]), (x["f0"], x["f1"], x["mask"], x["weight"])
+        by_route = fg.sp_geo_mlp_apply.launches_by_route
+        by_route.update(dict.fromkeys(by_route, 0))
+        with torch.no_grad():
+            got = fg.sp_geo_mlp_apply(ws, *lead, *rest, compute_dtype=bf)
+            ref = fg.sp_mlp_stack_plain(*lead, *rest, ws, compute_dtype=bf)
+        torch.cuda.synchronize()
+        routes = {k: v for k, v in by_route.items() if v}
+        worst = mean = abs_err = 0.0
+        for name, a, b in zip(names, ref, got):
+            if a.shape != b.shape:
+                raise SystemExit(f"K5 at 3 outputs, {name}: shape differs")
+            if name == "valid":
+                if not torch.equal(a, b):
+                    raise SystemExit("K5 at 3 outputs: valid differs from the plain version")
+                continue
+            if not bool((torch.isfinite(a) & torch.isfinite(b)).all()):
+                raise SystemExit(f"K5 at 3 outputs, {name}: not finite")
+            scale = a.abs().max().item()
+            worst = max(worst, (a - b).abs().max().item() / scale)
+            mean = max(mean, (a - b).abs().mean().item() / scale)
+            abs_err = max(abs_err, (a - b).abs().max().item())
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fg.sp_geo_mlp_apply(ws, *lead, *rest, compute_dtype=bf),
+                         iters=10)
+            plain_ms = cuda_ms(lambda: fg.sp_mlp_stack_plain(*lead, *rest, ws, compute_dtype=bf),
+                               iters=3, warmup=1)
+        n_bytes = 4 * (sum(t.numel() for t in (*lead, *rest)) + sum(w.numel() for w in ws)
+                       + N * (V * GEO_DIMS1[4] + 2 * GEO_DIMS1[4] + DOUT3_DIMS2[3] + 1))
+        b = geo_mlp_bound(N, V, K, True, geo_mlp_op_counts(), n_bytes, dims2=DOUT3_DIMS2)
+        print(f"K5 at 3 outputs (separate_cf), V={V} N={N} bf16, routes {routes}: worst error "
+              f"{worst:.3e} of an output's max (bound 5e-3), mean {mean:.3e} (bound 1e-6); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['binds']})", flush=True)
+        if routes != {"wgmma": 1}:
+            raise SystemExit("K5 at 3 outputs did not take the wgmma route")
+        if not (worst <= 5e-3 and mean <= 1e-6):
+            raise SystemExit("K5 at 3 outputs disagrees with its plain version")
+        res[str(N)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                           bound_by=b["bound_by"], max_abs_err=abs_err)
+    return res
+
+
+def strict_camera(dev, **flags):
+    """The render phase's 512² strict camera (orbit angle 0, 3 views of the
+    synthetic rig, chunk 2048) with config fields `flags`, seeded weights
+    with every radiance channel's bias raised by 2.0; (cfg, model, vb)."""
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.models import KeypointNeRF, KeypointNeRFConfig, ViewBatch, strict_preset
+
+    cfg = dataclasses.replace(strict_preset(KeypointNeRFConfig()), **flags)
+    R, t = orbit_camera(0.0)
+    sample = dict(make_sample(SyntheticConfig(image_size=RIG, n_views=4), seed=0), tar_R=R,
+                  tar_t=t)
+    vb = ViewBatch.from_numpy(sample, device=dev)
+    model = KeypointNeRF(cfg, device=dev, seed=0)
+    model.mlp_geo.layers2.layers[-1].linear.bias.data[1:] += 2.0
+    return cfg, model, vb
+
+
+def render_model_rest(dev) -> dict:
+    """The rest of the model at full width on the 512² strict camera: each
+    attention pool, separate_cf (culled == unculled bit for bit), and
+    separate_cf with use_pallas_geo_mlp (K5 at 3 outputs, 48 launches)
+    against separate_cf without it; returns K5's and K2's launches."""
+    from keypointnerf_torch.models import KeypointNeRF
+    from keypointnerf_torch.ops import multiview_onehot_bilinear_sample as k2
+    from keypointnerf_torch.ops import sp_geo_mlp_apply as k5
+    from keypointnerf_torch.render import render_image
+
+    size, chunk = RIG, 2048
+
+    def timed(model, vb, what):
+        render_image(model, vb, height=size, width=size, chunk=chunk)      # warm-up
+        k2.launches = k5.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_image(model, vb, height=size, width=size, chunk=chunk)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+        overflow = float(out["cull_overflow"].max())
+        print(f"render 512² strict bf16, {what}: {seconds:.4f} s, {size * size / seconds:.1f} "
+              f"rays/s; cull_overflow={overflow}; K2 launches {k2.launches}, K5 "
+              f"{k5.launches}; all finite {finite}; acc_fine>0 rays "
+              f"{int((out['acc_fine'] > 0).sum())}", flush=True)
+        if not finite or overflow != 0.0:
+            raise SystemExit(f"{what}: outputs not finite or cull_overflow != 0")
+        return out, dict(k2=k2.launches, k5=k5.launches, seconds=seconds)
+
+    launches, want = {}, strict_query_launches(size * size)
+    for mode in ("attention_v0", "attention_v1"):
+        _, model, vb = strict_camera(dev, pool_mode=mode)
+        _, n = timed(model, vb, f"pool_mode={mode}")
+        if n["k2"] != want:
+            raise SystemExit(f"K2 must run once a query ({want} a camera)")
+        del model
+    cfg, model, vb = strict_camera(dev, separate_cf=True)
+    out, n = timed(model, vb, "separate_cf")
+    full = KeypointNeRF(dataclasses.replace(cfg, cull_empty_rays_ratio=1.0), device=dev, seed=0)
+    full.load_state_dict(model.state_dict())
+    feats = model.encode(vb.src_images, vb.src_masks)
+    culled = render_image(model, vb, height=size, width=size, chunk=chunk, feats=feats)
+    unculled = render_image(full, vb, height=size, width=size, chunk=chunk, feats=feats)
+    differ = [k for k in unculled if not torch.equal(unculled[k], culled[k])]
+    print(f"separate_cf: culled vs unculled 512² render "
+          f"{'bit-equal' if not differ else 'DIFFER ' + str(differ)}", flush=True)
+    if differ:
+        raise SystemExit("separate_cf: the culled render differs from the unculled render")
+    del full, feats, culled, unculled
+    k5_model = KeypointNeRF(dataclasses.replace(cfg, use_pallas_geo_mlp=True), device=dev,
+                            seed=0)
+    k5_model.load_state_dict(model.state_dict())
+    k5_out, n5 = timed(k5_model, vb, "separate_cf + use_pallas_geo_mlp (K5 at 3 outputs)")
+    if n5["k5"] != want or n5["k2"] != want:
+        raise SystemExit(f"K5 and K2 must each run once a query ({want} a camera)")
+    compare_renders(out, k5_out, "512² separate_cf render, K5 on vs off",
+                    K5_SEPARATE_CF_RENDER_BOUNDS)
+    launches["sp_fused_geo_mlp"] = n5["k5"]
+    print(f"separate_cf render {n['seconds']:.4f} s, with K5 {n5['seconds']:.4f} s", flush=True)
+    return launches
+
+
+# ------------------------------------------------------ more than one device
+PARALLEL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_parallel"
+PARALLEL_TRAINER_SET = {"data.dataset": "synthetic", "max_epochs": 1,
+                        "val_every_steps": 2, "ckpt_every_steps": 2, "log_every_steps": 2,
+                        "data.max_len_val": 2}
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def zju_step_parts(dev):
+    """The zju recipe's step at full width: the config, a seeded model with
+    the radiance bias raised (as train_full_width), the random frozen VGG19
+    and the recipe's loss and optimizer sections."""
+    from keypointnerf_torch.models import KeypointNeRF, VGG19Features
+    from keypointnerf_torch.utils import load_config
+
+    cfg = zju_config()
+    model = KeypointNeRF(cfg, device=dev, seed=0)
+    model.mlp_geo.layers2.layers[-1].linear.bias.data[1:] += 2.0
+    return cfg, model, VGG19Features(device=dev, seed=42), load_config(str(ZJU_CONFIG))
+
+
+def rig_sample(dev, seed):
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.models import ViewBatch
+
+    return ViewBatch.from_numpy(make_sample(SyntheticConfig(image_size=RIG, n_views=4),
+                                            seed=seed), device=dev)
+
+
+def one_rank_nccl_step(dev) -> None:
+    """The zju step at full width in a one-rank NCCL group: the gradients
+    and loss terms after the all-reduce are bit-equal to the step's own
+    (the reduction is the identity), and the parameters to those of the
+    update made without a group from the same gradients (two runs of the
+    bf16 step differ by float atomics, so the same backward is compared);
+    then s/step with and without the group."""
+    import torch.distributed as dist
+
+    from keypointnerf_torch.ops import multiview_dmap_onehot as k1
+    from keypointnerf_torch.parallel import AUDIT, format_inventory, free_port, train_parallel
+    from keypointnerf_torch.training import (TrainDraws, apply_gradients, create_train_state,
+                                             global_norm, train_batch_step_fn)
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0, device_id=dev)
+    print(f"one-rank group: backend {dist.get_backend()}, world {dist.get_world_size()}",
+          flush=True)
+    try:
+        cfg, model, vgg, recipe = zju_step_parts(dev)
+        _, twin, _, _ = zju_step_parts(dev)
+        state = create_train_state(model, recipe.optim, vgg)
+        twin_state = create_train_state(twin, recipe.optim, vgg)
+        vb = rig_sample(dev, 0)
+        draws = [TrainDraws.sample(cfg, vb, torch.Generator(device=dev).manual_seed(0))]
+        seen = {}
+        reduce = train_parallel.reduce_step
+
+        def capturing(grads, err, group):
+            seen["in"] = ([g.clone() for g in grads], {k: v.clone() for k, v in err.items()})
+            out = reduce(grads, err, group)
+            seen["out"] = ([g.clone() for g in out[0]], dict(out[1]))
+            return out
+
+        train_parallel.reduce_step = capturing
+        AUDIT.reset()
+        k1.launches = 0
+        try:
+            err = train_batch_step_fn(model, recipe.loss, state, [vb], draws,
+                                      group=dist.group.WORLD)
+        finally:
+            train_parallel.reduce_step = reduce
+        inv = AUDIT.inventory()
+        (g_in, e_in), (g_out, e_out) = seen["in"], seen["out"]
+        grads_equal = all(torch.equal(a, b) for a, b in zip(g_in, g_out))
+        terms_equal = all(torch.equal(e_in[k].float(), e_out[k]) for k in e_in)
+        norm_equal = torch.equal(err["grad_norm"], global_norm(g_in))
+        apply_gradients(twin_state, list(twin.parameters()), g_in)
+        params_equal = all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                              twin.parameters()))
+        param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        print(f"one-rank NCCL step: reduced gradients bit-equal to the step's own "
+              f"{grads_equal}, loss terms {terms_equal}, grad_norm {norm_equal}, parameters "
+              f"bit-equal to the update without a group {params_equal}; K1 launches "
+              f"{k1.launches}; collectives:\n{format_inventory(inv)}", flush=True)
+        want = {"grads": {"op": "all_reduce", "calls": 1, "bytes": param_bytes},
+                "loss_terms": {"op": "all_reduce", "calls": 1, "bytes": 16}}
+        if not (grads_equal and terms_equal and norm_equal and params_equal):
+            raise SystemExit("the one-rank NCCL step differs from the step without a group")
+        if inv != want or k1.launches != 2:
+            raise SystemExit("the one-rank step's collectives or K1 launches are not the "
+                             "expected ones")
+        times = {}
+        for name, group in (("with the group", dist.group.WORLD), ("without", None)):
+            per = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_batch_step_fn(model, recipe.loss, state, [vb], draws, group=group)
+                torch.cuda.synchronize()
+                per.append(time.perf_counter() - t0)
+            times[name] = per
+        print(f"zju step s/step, one-rank NCCL group {[round(t, 4) for t in times['with the group']]}"
+              f", no group {[round(t, 4) for t in times['without']]}", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def global_batch_step(dev) -> dict:
+    """The first zju step of one process on the global batch of the two
+    ranks' samples (rig seeds 0 and 1), draws by slot from the step's
+    generator: loss terms, the gradient (host, by name), s/step, peak."""
+    from keypointnerf_torch.parallel import slot_draws
+    from keypointnerf_torch.training import create_train_state, step_generator, train_batch_step_fn
+    from keypointnerf_torch.training import train as train_module
+
+    cfg, model, vgg, recipe = zju_step_parts(dev)
+    state = create_train_state(model, recipe.optim, vgg)
+    batch = [rig_sample(dev, 0), rig_sample(dev, 1)]
+    draws = slot_draws(cfg, batch, step_generator(0, 0, dev), 2, 0)
+    names = [n for n, _ in model.named_parameters()]
+    grads = {}
+    apply = train_module.apply_gradients
+
+    def keeping(st, params, gs):
+        grads.update((n, g.cpu()) for n, g in zip(names, gs))
+        apply(st, params, gs)
+
+    train_module.apply_gradients = keeping
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        err = train_batch_step_fn(model, recipe.loss, state, batch, draws)
+    finally:
+        train_module.apply_gradients = apply
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(first={k: v.item() for k, v in err.items()}, grads=grads, s_per_step=seconds,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def rank_steps(dev, group, r, world) -> dict:
+    """2 warm-up and 3 timed data-parallel zju steps on this rank's slot of
+    the global batch (local batch 1): per step its time, loss terms, K1
+    launches, collectives and a digest of the parameters; the first step's
+    reduced gradient (rank 0, host), the timed steps' peak memory, and K1's
+    time at the first step's own two calls, timed by both ranks at once
+    (after a barrier) as they share the card."""
+    from keypointnerf_torch.ops import multiview_dmap_onehot as k1
+    from keypointnerf_torch.ops import onehot_dmap as k1_module
+    from keypointnerf_torch.parallel import AUDIT, barrier, make_global_batch, slot_draws
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.training import create_train_state, step_generator, train_batch_step_fn
+    from keypointnerf_torch.training import train as train_module
+
+    cfg, model, vgg, recipe = zju_step_parts(dev)
+    state = create_train_state(model, recipe.optim, vgg)
+    batch = make_global_batch([make_sample(SyntheticConfig(image_size=RIG, n_views=4), seed=r)],
+                              dev)
+    names = [n for n, _ in model.named_parameters()]
+    res = {"steps": []}
+    apply = train_module.apply_gradients
+
+    def keeping(st, params, gs):
+        if r == 0 and "grads" not in res:
+            res["grads"] = {n: g.cpu() for n, g in zip(names, gs)}
+        apply(st, params, gs)
+
+    k1_inputs = []
+
+    def capturing(xy, g, H, W, map_dtype=torch.bfloat16):
+        k1_inputs.append((xy.cpu(), g.cpu(), H, W, map_dtype))
+        return k1(xy, g, H, W, map_dtype)
+
+    # the wrapper counts its launches on the module's name for it: while
+    # `capturing` holds that name, K1's launches count on it
+    capturing.launches = 0
+    train_module.apply_gradients = keeping
+    try:
+        for step in range(5):
+            # the backward looks K1 up in its module: the first step's calls
+            k1_module.multiview_dmap_onehot = capturing if step == 0 else k1
+            if step == 2:
+                torch.cuda.reset_peak_memory_stats()
+            draws = slot_draws(cfg, batch, step_generator(0, step, dev), world, r)
+            AUDIT.reset()
+            k1.launches = capturing.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            err = train_batch_step_fn(model, recipe.loss, state, batch, draws, group=group)
+            torch.cuda.synchronize()
+            res["steps"].append(dict(seconds=time.perf_counter() - t0,
+                                     terms={k: v.item() for k, v in err.items()},
+                                     k1=k1.launches + capturing.launches,
+                                     inventory=AUDIT.inventory(),
+                                     digest=params_digest(model)))
+    finally:
+        train_module.apply_gradients = apply
+        k1_module.multiview_dmap_onehot = k1
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["param_bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
+    calls = [(xy.to(dev), g.to(dev), H, W, dt) for xy, g, H, W, dt in k1_inputs]
+    barrier("k1_timing", group)
+    res["k1_ms"] = [cuda_ms(lambda c=c: k1(*c), iters=20) for c in calls]
+    return res
+
+
+def rank_render(dev, group, r, world) -> dict:
+    """The 512² strict camera sharded over the ranks: its time after a
+    warm-up, K2's launches in this rank, the collectives, this rank's rays'
+    cull_overflow, and (rank 0) the image."""
+    from keypointnerf_torch.ops import multiview_onehot_bilinear_sample as k2
+    from keypointnerf_torch.parallel import AUDIT, make_sharded_render
+
+    _, model, vb = strict_camera(dev)
+    render = make_sharded_render(model, group, chunk=2048)
+    render(vb, height=RIG, width=RIG)
+    k2.launches = 0
+    AUDIT.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = render(vb, height=RIG, width=RIG)
+    torch.cuda.synchronize()
+    res = dict(seconds=time.perf_counter() - t0, k2=k2.launches, inventory=AUDIT.inventory(),
+               overflow=float(out["cull_overflow"].reshape(-1)[r::world].max()))
+    if r == 0:
+        res["image"] = {k: v.cpu() for k, v in out.items()}
+    return res
+
+
+def rank_trainer(dev, group, r) -> dict:
+    """The Trainer at full width on the synthetic 512² rig: 2 steps (a val
+    and a checkpoint at 2), then a new Trainer that resumes step 2 and
+    trains to 4; whether the restored state is the saved one bit for bit,
+    and which writers this rank has."""
+    from keypointnerf_torch.data import SyntheticConfig, SyntheticDataset
+    from keypointnerf_torch.models import VGG19Features
+    from keypointnerf_torch.training import TrainState
+    from keypointnerf_torch.training.loop import Trainer
+    from keypointnerf_torch.utils import get_model, load_config
+
+    cfg = load_config(str(ZJU_CONFIG), dict(PARALLEL_TRAINER_SET, **{"data.image_size": RIG},
+                                             out_dir=str(PARALLEL_DIR / "trainer")))
+    vgg = VGG19Features(device=dev)
+
+    def trainer():
+        sc = SyntheticConfig(image_size=RIG)
+        return Trainer(cfg, get_model(cfg, device=dev), SyntheticDataset(sc, length=64),
+                       SyntheticDataset(sc, length=2), vgg=vgg, group=group, tensorboard=False)
+
+    t0 = time.perf_counter()
+    first = trainer()
+    first.fit(max_steps=2)
+    res = dict(first_s=time.perf_counter() - t0, writers=(first.metrics.main, first.ckpt._writes))
+    saved = state_on_host(first.state)
+    del first
+    restored = []
+    load = TrainState.load_state_dict
+
+    def keeping(self, d):
+        load(self, d)
+        restored.append(state_on_host(self))
+
+    TrainState.load_state_dict = keeping
+    try:
+        second = trainer()
+    finally:
+        TrainState.load_state_dict = load
+    res["exact"] = len(restored) == 1 and same_tree(restored[0], saved)
+    res["resume"] = (second.state.step, second._resume_epoch, second._resume_pos)
+    del restored, saved
+    t0 = time.perf_counter()
+    second.fit(max_steps=4)
+    res.update(second_s=time.perf_counter() - t0, step=second.state.step,
+               digest=params_digest(second.model))
+    return res
+
+
+def eval_config(name):
+    from keypointnerf_torch.utils import load_config
+
+    return load_config(str(ZJU_CONFIG), {"data.dataset": "synthetic", "data.image_size": RIG,
+                                         "out_dir": str(PARALLEL_DIR), "name": name})
+
+
+def eval_scores(dev, sharded, group=None):
+    """run_eval on 2 synthetic 512² samples (configs/zju.json's model,
+    seeded, radiance bias raised), sharded over `group` or not."""
+    from keypointnerf_torch.data import SyntheticConfig, SyntheticDataset
+    from keypointnerf_torch.evaluation import run_eval
+    from keypointnerf_torch.parallel import AUDIT
+    from keypointnerf_torch.utils import get_model
+
+    cfg = eval_config("sharded" if sharded else "unsharded")
+    model = get_model(cfg, device=dev)
+    model.mlp_geo.layers2.layers[-1].linear.bias.data[1:] += 2.0
+    AUDIT.reset()
+    t0 = time.perf_counter()
+    mean = run_eval(cfg, model, SyntheticDataset(SyntheticConfig(image_size=RIG), length=2),
+                    sharded=sharded, group=group)
+    return dict(mean=mean, seconds=time.perf_counter() - t0, inventory=AUDIT.inventory())
+
+
+def parallel_rank(r, world, port, backend, out_dir) -> None:
+    """One rank of the parallel phase (torch.multiprocessing.spawn): joins
+    the group and writes what it measured to out_dir/rank{r}.pt."""
+    import torch.distributed as dist
+
+    from keypointnerf_torch.parallel import destroy, initialize_distributed, rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(r)
+    torch.cuda.set_device(dev)
+    initialize_distributed(f"localhost:{port}", world, r, backend, dev)
+    group = dist.group.WORLD
+    res = {"rank": r, "device": str(dev), "backend": dist.get_backend()}
+    try:
+        res["step"] = rank_steps(dev, group, r, world)
+        torch.cuda.empty_cache()
+        res["render"] = rank_render(dev, group, r, world)
+        torch.cuda.empty_cache()
+        res["trainer"] = rank_trainer(dev, group, r)
+        torch.cuda.empty_cache()
+        res["eval"] = eval_scores(dev, True, group)
+    finally:
+        torch.save(res, Path(out_dir) / f"rank{r}.pt")
+        destroy()
+
+
+def parallel_phase(dev) -> dict:
+    """The data-parallel paths on the card: the one-rank NCCL step, the
+    one-process global-batch step (twice: the atomics' floor), then two
+    ranks (gloo on one card, chosen here and printed; NCCL on two cards
+    where there are two) running the step, the sharded render, the
+    Trainer and the sharded eval, each held against one process."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from keypointnerf_torch.parallel import format_inventory, free_port
+    from keypointnerf_torch.render import render_image
+
+    phase("parallel: the zju step in a one-rank NCCL group")
+    one_rank_nccl_step(dev)
+    torch.cuda.empty_cache()
+    phase("parallel: one process at global batch 2, twice (the atomics' floor)")
+    ref = global_batch_step(dev)
+    again = global_batch_step(dev)
+    compare_first_step_grads(ref, again, "the global-batch step again")
+    print(f"one process, global batch 2: {ref['s_per_step']:.4f} s (first step), peak "
+          f"{ref['peak_bytes']} bytes ({ref['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
+    del again
+    torch.cuda.empty_cache()
+    _, model, vb = strict_camera(dev)
+    render_image(model, vb, height=RIG, width=RIG, chunk=2048)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = render_image(model, vb, height=RIG, width=RIG, chunk=2048)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single = {k: v.cpu() for k, v in single.items()}
+    del model, vb
+    torch.cuda.empty_cache()
+
+    world = 2
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    phase(f"parallel: {world} ranks, backend {backend} on "
+          f"{'one card each' if backend == 'nccl' else 'one card'}")
+    print(f"backend {backend}, chosen for {torch.cuda.device_count()} card(s): two NCCL ranks "
+          "cannot share one card; gloo takes CUDA tensors for all-reduce, broadcast and "
+          "barrier. Two ranks on one card measure correctness and overhead, not scaling",
+          flush=True)
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(parallel_rank, args=(world, free_port(), backend, str(PARALLEL_DIR)),
+             nprocs=world, join=True)
+    print(f"{world} ranks ran in {time.perf_counter() - t0:.1f} s", flush=True)
+    res = [torch.load(PARALLEL_DIR / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+    # the step
+    steps = [x["step"] for x in res]
+    for r, st in enumerate(steps):
+        timed = [s["seconds"] for s in st["steps"][2:]]
+        print(f"rank {r} ({res[r]['device']}, {res[r]['backend']}): s/step "
+              f"{[round(s['seconds'], 4) for s in st['steps']]} (timed mean "
+              f"{sum(timed) / len(timed):.4f}), peak {st['peak_bytes']} bytes "
+              f"({st['peak_bytes'] / 2**30:.2f} GiB), K1 launches a step "
+              f"{[s['k1'] for s in st['steps']]}, K1 at the first step's two calls "
+              f"{[round(t, 4) for t in st['k1_ms']]} ms (both ranks timing at once); "
+              f"step 0 collectives:\n"
+              f"{format_inventory(st['steps'][0]['inventory'])}", flush=True)
+        want = {"grads": {"op": "all_reduce", "calls": 1, "bytes": st["param_bytes"]},
+                "loss_terms": {"op": "all_reduce", "calls": 1, "bytes": 16}}
+        if any(s["inventory"] != want for s in st["steps"]):
+            raise SystemExit("a data-parallel step's collectives are not one gradient "
+                             "all-reduce of the parameter bytes and one of the loss terms")
+        if any(s["k1"] != 2 for s in st["steps"]):
+            raise SystemExit("K1 must run twice a sample on each rank")
+        if not all(math.isfinite(v) for s in st["steps"] for v in s["terms"].values()):
+            raise SystemExit("a data-parallel step's loss is not finite")
+    same = [a["digest"] == b["digest"] and a["terms"] == b["terms"]
+            for a, b in zip(*(st["steps"] for st in steps))]
+    print(f"parameters and loss terms bit-equal across the ranks after each step: {same}",
+          flush=True)
+    if not all(same):
+        raise SystemExit("the ranks' parameters differ")
+    two = dict(first=steps[0]["steps"][0]["terms"], grads=steps[0]["grads"],
+               s_per_step=steps[0]["steps"][0]["seconds"], peak_bytes=steps[0]["peak_bytes"])
+    # the loss terms: each rank's mean all-reduced and halved, against the
+    # mean of the two in one process (the same sum, in another program)
+    compare_first_step_grads(ref, two, "the two-rank step (local batch 1)",
+                             loss_bound=FUSED_STEP_LOSS_BOUND)
+    del ref, two
+
+    # the render
+    ren = [x["render"] for x in res]
+    image = ren[0]["image"]
+    differ = [k for k in single if not torch.equal(single[k], image[k])]
+    print(f"sharded 512² strict render: {[round(x['seconds'], 4) for x in ren]} s a rank = "
+          f"{RIG * RIG / max(x['seconds'] for x in ren):.1f} rays/s (one process, before the "
+          f"ranks: {single_s:.4f} s = {RIG * RIG / single_s:.1f} rays/s); K2 launches a rank "
+          f"{[x['k2'] for x in ren]}; "
+          f"cull_overflow of each rank's rays {[x['overflow'] for x in ren]}; against the "
+          f"single-process render: {'bit-equal' if not differ else 'differs in ' + str(differ)}"
+          f"; collectives a rank: {[x['inventory'] for x in ren]}", flush=True)
+    want = strict_query_launches(-(-RIG * RIG // world))
+    if any(x["overflow"] != 0.0 for x in ren) or any(x["k2"] != want for x in ren):
+        raise SystemExit(f"sharded render: a rank overflowed its cull or K2 did not run "
+                         f"{want} times in each")
+    if any(x["inventory"] != {"image": {"op": "all_reduce", "calls": 1,
+                                        "bytes": x["inventory"]["image"]["bytes"]}}
+           for x in ren):
+        raise SystemExit("the sharded render's collectives are not one image gather")
+    if differ:
+        compare_renders(single, image, "sharded vs single-process 512² render",
+                        K5_RENDER_BOUNDS)
+
+    # the Trainer
+    tr = [x["trainer"] for x in res]
+    rows = [json.loads(line) for line in open(PARALLEL_DIR / "trainer" / "zju" / "metrics.jsonl")]
+    train = sorted(r_["step"] for r_ in rows if "train/e_all" in r_)
+    val = sorted(r_["step"] for r_ in rows if "val/total_loss" in r_)
+    ckpts = sorted(int(p.name) for p in (PARALLEL_DIR / "trainer" / "zju" / "ckpts").iterdir()
+                   if p.name.isdigit())
+    print(f"Trainer on {world} ranks: first 2 steps {[round(x['first_s'], 2) for x in tr]} s, "
+          f"resumed to {[x['step'] for x in tr]} in {[round(x['second_s'], 2) for x in tr]} s "
+          f"(resumed at step, epoch, place {[x['resume'] for x in tr]}); restored state "
+          f"bit-equal to "
+          f"the saved one {[x['exact'] for x in tr]}; final parameters equal across ranks "
+          f"{tr[0]['digest'] == tr[1]['digest']}; writers (metrics, checkpoints) "
+          f"{[x['writers'] for x in tr]}; metrics.jsonl train/ rows {train}, val/ rows {val}; "
+          f"checkpoints {ckpts}", flush=True)
+    if not (all(x["exact"] and x["step"] == 4 and x["resume"] == (2, 0, 2) for x in tr)
+            and tr[0]["digest"] == tr[1]["digest"]
+            and tr[0]["writers"] == (True, True) and tr[1]["writers"] == (False, False)
+            and train == [2, 4] and val == [2, 4] and ckpts == [2, 4]):
+        raise SystemExit("the two-rank Trainer did not resume exactly, write from rank 0 only "
+                         "or log and save at 2 and 4")
+
+    # the sharded eval
+    ev = [x["eval"] for x in res]
+    one = eval_scores(dev, False)
+    print(f"run_eval(sharded=True), 2 samples at 512²: rank 0 {ev[0]['mean']} in "
+          f"{ev[0]['seconds']:.2f} s (rank 1 returns {ev[1]['mean']}; gathers a rank "
+          f"{[x['inventory'].get('image', {}).get('calls') for x in ev]}); unsharded "
+          f"{one['mean']} in {one['seconds']:.2f} s", flush=True)
+    if ev[1]["mean"] != {} or set(ev[0]["mean"]) != {"mse", "psnr", "ssim"}:
+        raise SystemExit("sharded eval: rank 0 must score and rank 1 return nothing")
+    for k, v in one["mean"].items():
+        if not (math.isfinite(v) and abs(ev[0]["mean"][k] - v) <= 1e-6 * abs(v)):
+            raise SystemExit(f"sharded eval's {k} differs from the unsharded run's")
+    return dict(k1_launches=[s["k1"] for s in steps[0]["steps"]],
+                k1_ms=[st["k1_ms"] for st in steps], k2_launches=[x["k2"] for x in ren])
+
+PHASES = ("kernels", "render", "fast", "agreement", "train", "train_agreement", "trainer",
+          "model_rest", "parallel")
 
 
 def main() -> int:
@@ -2689,6 +3370,42 @@ def main() -> int:
     if "trainer" in todo:
         phase("the trainer CLI at full width (python -m keypointnerf_torch.train)")
         trainer_cli(bare_s_per_step)
+
+    if "model_rest" in todo:
+        t0 = time.perf_counter()
+        phase("the rest of the model: K5 at 3 outputs (separate_cf) against its plain version")
+        dout3 = check_k5_three_outputs(dev)
+        phase("the rest of the model: 512² strict renders, attention pools and separate_cf")
+        rest_launches = render_model_rest(dev)
+        if "sp_fused_geo_mlp" in entries:
+            entries["sp_fused_geo_mlp"]["separate_cf_3_outputs"] = dict(
+                dout3[str(2048 * 64)], fine_query=dout3[str(2048 * 128)],
+                launches=rest_launches["sp_fused_geo_mlp"])
+        phase("the rest of the model: full-width zju steps with attention_v1 and separate_cf")
+        rest_step = train_full_width(dev, warmup=1, steps=2, pool_mode="attention_v1",
+                                     separate_cf=True)
+        print(f"zju step with attention_v1 + separate_cf: {rest_step['s_per_step']:.4f} s/step, "
+              f"peak {rest_step['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+        del rest_step
+        phase("the rest of the model: small-input agreement, card vs CPU")
+        # with seeded weights the toy scene's rad_c and rad_f are negative
+        # everywhere (a black image, zero gradients): both biases raised by
+        # 1.5, as tests/test_torch_model_rest.py raises them
+        agreement_small(dev, 1.5, pool_mode="attention_v1", separate_cf=True)
+        agreement_small(dev, 1.5, pool_mode="attention_v0")
+        agreement_small(dev, 1.5, separate_cf=True, use_pallas_geo_mlp=True)
+        train_agreement_small(dev, 1.5, pool_mode="attention_v1", separate_cf=True)
+        print(f"phase model_rest {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if "parallel" in todo:
+        t0 = time.perf_counter()
+        par = parallel_phase(dev)
+        if "onehot_dmap" in entries:
+            entries["onehot_dmap"]["parallel"] = dict(launches_per_rank_step=par["k1_launches"],
+                                                      ms_per_rank=par["k1_ms"])
+        if "onehot_bilinear" in entries:
+            entries["onehot_bilinear"]["parallel_rank_launches"] = par["k2_launches"]
+        print(f"phase parallel {time.perf_counter() - t0:.1f} s", flush=True)
 
     if set(todo) != set(PHASES):
         print(f"partial run ({todo}): no result line", flush=True)

@@ -21,14 +21,19 @@ Layer map (each module sits where its JAX counterpart does):
               test-set runner
   utils/      configs/*.json -> dataclasses, weight carry from the JAX
               parameter tree, checkpoints, the metrics stream, profiling
+  parallel/   one process a device over torch.distributed: the
+              data-parallel step (one gradient all-reduce), the sharded
+              eval and render, the collective audit
   train.py    the training CLI (python -m keypointnerf_torch.train)
   eval_zju.py re-scoring of saved PNG trees (python -m
               keypointnerf_torch.eval_zju)
 
 The port renders with the `strict_preset` and `fast_preset` semantics
 (configs/zju_fast.json), scores renders, and trains the configs/zju.json
-recipe on one device through its CLI. Flags it does not implement raise
-NotImplementedError naming their ROADMAP item.
+recipe through its CLI on one device or several (one rank each), with
+every model flag of the JAX package (the attention pools, `separate_cf`).
+What it does not implement yet (the ZJU-MoCap loader, loader workers)
+raises NotImplementedError naming its ROADMAP item.
 """
 
 __version__ = "0.1.0"

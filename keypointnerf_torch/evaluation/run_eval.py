@@ -3,7 +3,10 @@
 Port of `keypointnerf_tpu/evaluation/run_eval.py`: render each test
 sample at full resolution with the port's `render_image`, score PSNR /
 SSIM with the `Evaluator` (which saves the pred / gt / input PNG trees)
-and write the means to `{out_dir}/{name}/test_v3_{step}.yml`.
+and write the means to `{out_dir}/{name}/test_v3_{step}.yml`. In a
+torch.distributed group rank 0 alone scores and writes: with `sharded`
+every rank renders its share of each image's rays
+(`parallel.make_sharded_render`), else rank 0 renders alone.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..models.keypoint_nerf import KeypointNeRF, ViewBatch
+from ..parallel import default_group, make_sharded_render, rank, world_size
 from ..render import render_image, suggest_cull_budget
 from .evaluator import Evaluator
 
@@ -29,6 +33,7 @@ def run_eval(
     sharded: bool = False,
     auto_cull_budget: int = 0,
     step: int = 0,
+    group=None,
 ) -> Dict[str, float]:
     """Mean {"mse", "psnr", "ssim"} of `model` over `dataset` (numpy sample
     dicts, each with an optional "meta" dict; None entries are skipped).
@@ -38,14 +43,24 @@ def run_eval(
     scores the first N loadable samples' target cameras with
     `suggest_cull_budget` and raises the cull budget to cover them. A
     rendered sample whose `cull_overflow` is nonzero is reported.
-    `sharded=True` (rays across devices) is not ported yet.
+    `group` is the torch.distributed group (default: the default group once
+    one is initialized). `sharded=True` splits each image's rays over its
+    ranks; with one rank it is the unsharded render, as in JAX. Ranks other
+    than 0 return {}.
     """
-    if sharded:
-        raise NotImplementedError(
-            "sharded evaluation is not ported yet: ROADMAP Queue 1 item 6 (parallel/)")
+    group = default_group() if group is None else group
+    world = 1 if group is None else world_size(group)
+    main = world == 1 or rank(group) == 0
+    if not (main or sharded):
+        return {}
+    sharded_render = None
+    if sharded and world > 1:
+        if stride != 1:
+            raise ValueError("sharded evaluation renders at full resolution (stride 1)")
+        sharded_render = make_sharded_render(model, group)
     out_dir = os.path.join(cfg.out_dir, cfg.name)
     result_dir = result_dir or os.path.join(out_dir, "images_v3")
-    evaluator = Evaluator(result_dir=result_dir)
+    evaluator = Evaluator(result_dir=result_dir) if main else None
     dev = model.device
 
     if auto_cull_budget and model.cfg.cull_empty_rays_ratio < 1.0:
@@ -71,6 +86,8 @@ def run_eval(
             # a shallow copy shares the weights; only the config differs
             model = copy.copy(model)
             model.cfg = dataclasses.replace(model.cfg, cull_empty_rays_ratio=worst_budget)
+            if sharded_render is not None:
+                sharded_render = make_sharded_render(model, group)
 
     scores = []
     n = len(dataset) if max_samples is None else min(len(dataset), max_samples)
@@ -81,7 +98,12 @@ def run_eval(
         meta = sample.get("meta", {})
         vb = ViewBatch.from_numpy(sample, dev)
         H, W = vb.tar_image.shape[:2]
-        out = render_image(model, vb, height=H, width=W, stride=stride)
+        if sharded_render is not None:
+            out = sharded_render(vb, height=H, width=W)
+        else:
+            out = render_image(model, vb, height=H, width=W, stride=stride)
+        if not main:
+            continue
         if "cull_overflow" in out:
             ov = float(out["cull_overflow"].max())
             if ov > 0:
@@ -101,6 +123,8 @@ def run_eval(
         scores.append(score)
         print(f"[{i + 1}/{n}] psnr={score['psnr']:.2f} ssim={score['ssim']:.4f}")
 
+    if not main:
+        return {}
     mean = {k: float(np.mean([s[k] for s in scores])) for k in scores[0]} if scores else {}
     yml_path = os.path.join(out_dir, f"test_v3_{step}.yml")
     os.makedirs(out_dir, exist_ok=True)

@@ -50,9 +50,11 @@ In training, `remat` recomputes each query's activations in the backward
 map lookups out of that recompute, as the JAX model's remat policy saves its
 `kpn_gathered` values.
 
-`separate_cf` and the attention pools are later slices: a config that
-needs them raises NotImplementedError naming the ROADMAP item.
-`pallas_interpret` is a config field the port ignores.
+With `separate_cf` the geometry MLP has a third output, [sdf, rad_c,
+rad_f]: the fine pass reads rad_f, and the eval's coarse-value reuse is
+off (the fine pass re-evaluates the union). `pool_mode` selects the
+attention pools (`models/mlp.py:AttentionPool`). `pallas_interpret` is a
+config field the port ignores.
 """
 from __future__ import annotations
 
@@ -181,8 +183,8 @@ class KeypointNeRFConfig:
 
 
 def check_supported(cfg: KeypointNeRFConfig) -> None:
-    """Raise NotImplementedError for a flag the port does not implement
-    yet, ValueError for a combination the model refuses."""
+    """Raise ValueError for a combination the model refuses (those the
+    JAX model refuses, and a compute dtype other than f32 / bf16)."""
     if cfg.use_pallas_geo_mlp and cfg.pool_mode:
         raise ValueError(
             "use_pallas_geo_mlp supports only the default mean/var pooling"
@@ -192,14 +194,6 @@ def check_supported(cfg: KeypointNeRFConfig) -> None:
         raise ValueError(
             "nl_relu_approx is not supported with use_pallas_geo_mlp "
             "(the fused kernel applies softplus100)")
-    unported = [
-        (cfg.separate_cf, "separate_cf", "Queue 1 item 2 (model remainder)"),
-        (bool(cfg.pool_mode), f"pool_mode={cfg.pool_mode!r}", "Queue 1 item 2 (AttentionPool)"),
-    ]
-    for on, flag, item in unported:
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP {item}")
     if cfg.compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be torch.float32 or torch.bfloat16, "
                          f"got {cfg.compute_dtype!r}")
@@ -287,6 +281,8 @@ class KeypointNeRF(nn.Module):
                                          c.tex_n_blocks, c.tex_n_upsample)
         dims1 = (c.sp_dim,) + tuple(c.mlp_dims1[1:])
         dims2 = tuple(c.mlp_dims2)
+        if c.separate_cf:
+            dims2 = dims2[:-1] + (dims2[-1] + 1,)       # [sdf, rad_c, rad_f]
         nl = "relu" if (c.nl_relu_approx and c.mlp_nl == "softplus") else c.mlp_nl
         self.mlp_geo = GeoFusionMLP(
             dims1, dims2, (c.geo_out_ch, c.geo_out_ch_hd), c.mlp_skip_layers,
@@ -400,7 +396,8 @@ class KeypointNeRF(nn.Module):
         what `gather_lerp` groups the points by. `view_keep` (V,)
         is the training view-dropout draw (0/1 per view, one view forced
         kept), applied when `train` and V > 1. Returns f32 sdf (N, 1),
-        rad (N, 1), rgb (N, 3) and valid (N, 1).
+        rads (N, 1), or (N, 2) [coarse, fine] with `separate_cf`, rgb
+        (N, 3) and valid (N, 1).
         """
         looked = self.lookup_points(pts, feats, vb, n_samples, train)
         return self.query_head(pts, view_dirs, vb, looked, train, view_keep)
@@ -573,16 +570,18 @@ class KeypointNeRF(nn.Module):
             return ckpt(self.query_head, pts, view_dirs, vb, looked, **kw)
         return ckpt(self.query_points, pts, view_dirs, feats, vb, n_samples, **kw)
 
-    def _eval_density(self, pts, view_dirs, feats, vb, n_samples, draws=None):
+    def _eval_density(self, pts, view_dirs, feats, vb, n_samples, draws=None,
+                      fine: bool = False):
         """Background sdf substitution, the training radiance noise (the
         query's `noise` draw, already scaled by `rand_noise_std`) and
         alpha = valid * relu(rad). `draws` (a `QueryDraws`) is given in
-        training and None at eval."""
+        training and None at eval. With `separate_cf` the fine pass
+        (`fine`) reads the second radiance channel."""
         train = draws is not None
         sdf, rads, rgb, valid = self._query(
             pts, view_dirs, feats, vb, n_samples, train,
             draws.view_keep if train else None)
-        rad = rads[..., 0:1]
+        rad = rads[..., 1:2] if (self.cfg.separate_cf and fine) else rads[..., 0:1]
         sdf = valid * sdf + (1.0 - valid) * self.cfg.bkg_sdf
         if train and self.cfg.rand_noise_std > 0.0:
             rad = rad + draws.noise
@@ -669,14 +668,15 @@ class KeypointNeRF(nn.Module):
         dirs_f = take(dirs)
         Rf = dirs_f.shape[0]
         # the reuse merge is exact only for a deterministic query (eval)
-        if c.reuse_coarse_eval and not train:
+        # that reads the coarse radiance in both passes
+        if c.reuse_coarse_eval and not train and not c.separate_cf:
             # the eval query is deterministic: evaluate only the fine depths
             # and merge the cached coarse values (exact)
             z_f = take(z_fine)
             pts = origin + dirs_f[:, None, :] * z_f[..., None]
             view = dirs_f[:, None, :].expand(pts.shape)
             alpha_f, sdf_f, rgb_f = self._eval_density(
-                pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, c.n_fine)
+                pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, c.n_fine, fine=True)
             v_c = torch.cat([take(alpha)[..., None], take(sdf)[..., None], take(rgb)], dim=-1)
             v_f = torch.cat([
                 alpha_f.reshape(Rf, c.n_fine, 1),
@@ -692,7 +692,7 @@ class KeypointNeRF(nn.Module):
             view = dirs_f[:, None, :].expand(pts.shape)
             alpha_a, sdf_a, rgb_a = self._eval_density(
                 pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, n_all,
-                None if draws is None else draws.fine)
+                None if draws is None else draws.fine, fine=True)
             fine_out = composite(alpha_a.reshape(Rf, n_all), sdf_a.reshape(Rf, n_all),
                                  rgb_a.reshape(Rf, n_all, 3), z_all)
         if not cull:

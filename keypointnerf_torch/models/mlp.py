@@ -4,7 +4,8 @@ masked cross-view pooling, and the fused geometry head.
 Port of `keypointnerf_tpu/models/mlp.py` with the original KeypointNeRF
 state_dict layout: every layer is a `layers.{i}.linear` holding
 `weight_v`/`weight_g`/`bias` (weight norm, dim 0) or `weight`/`bias`
-(the last layer). `AttentionPool` is not ported yet. Everything here is
+(the last layer). The attention pools (`pool_mode`) are `mlp_geo.pool`,
+an `AttentionPool` (see its docstring for its keys). Everything here is
 differentiable; the training step holds its gradients against `jax.grad`.
 
 Numerics follow the JAX `WNDense`: the weight norm w = v * g / (||v|| +
@@ -181,6 +182,20 @@ class MLPUNet(nn.Module):
         return x
 
 
+def pool_ops(x, pool_types, weight):
+    """Weighted pooling over the view axis in the order max, mean, var
+    (JAX `pool_ops`). x (V, N, C); weight (V, N, 1) or (V, N, C)."""
+    outs = []
+    if "max" in pool_types:
+        outs.append(x.amax(dim=0))
+    mean = (weight * x).sum(dim=0)
+    if "mean" in pool_types:
+        outs.append(mean)
+    if "var" in pool_types:
+        outs.append((weight * (x - mean[None]) ** 2).sum(dim=0))
+    return torch.cat(outs, dim=-1)
+
+
 def masked_pool(x, mask, weight=None, pool_types=("mean", "var")):
     """Masked weighted mean/var pooling across the view axis.
 
@@ -191,33 +206,91 @@ def masked_pool(x, mask, weight=None, pool_types=("mean", "var")):
     a_sum = mask.sum(dim=0)
     if weight is None:
         weight = mask / (a_sum[None] + 1e-6)
-    outs = []
-    if "max" in pool_types:
-        outs.append(x.amax(dim=0))
-    mean = (weight * x).sum(dim=0)
-    if "mean" in pool_types:
-        outs.append(mean)
-    if "var" in pool_types:
-        outs.append((weight * (x - mean[None]) ** 2).sum(dim=0))
-    return torch.cat(outs, dim=-1), a_sum > 0.0
+    return pool_ops(x, pool_types, weight), a_sum > 0.0
+
+
+class AttentionPool(nn.Module):
+    """The attention-weighted cross-view pool of the reference PoolModule
+    (src/utils.py:589-647), JAX `AttentionPool` with its arithmetic:
+
+      * attention_v0: the pixel weights times exp(att(x)), a Linear(C, 1)
+        per (view, point), renormalised over the views (+1e-6);
+      * attention_v1: a query q_proj(pool_ops(x, [max, mean], mask /
+        (a_sum + 1e-6))), Linear(2C, C), reshaped (N, D, H) (D first) and
+        keys k_proj(x), Linear(C, C), reshaped (V, N, D, H); the logits
+        q . k / D**2 (not sqrt(D)), exponentiated and spread over each
+        head's D channels, reweight the pixel weights, renormalised as v0.
+
+    With one view neither mode reweights. `valid` is a_sum > 1 for
+    pool_types ("var",), a_sum > 0 otherwise. The Linears run in f32 (the
+    Flax Dense has no compute dtype; the latents are f32).
+
+    Keys: `att` (v0), `q_proj` and `k_proj` (v1), under the GeoFusionMLP's
+    `pool` (the reference's PoolModule slot). The reference source is not
+    in this repository, so these are the port's own names for the
+    PoolModule's layers; `utils/convert.py` carries the Flax Dense leaves
+    (`AttentionPool_0/Dense_0`, `Dense_1`) onto them.
+    """
+
+    MODES = ("attention_v0", "attention_v1")
+
+    def __init__(self, n_ch, pool_types=("mean", "var"), pool_mode="attention_v0",
+                 n_heads=1):
+        super().__init__()
+        if pool_mode not in self.MODES:
+            raise ValueError(f"unknown pool_mode {pool_mode!r}; expected one of {self.MODES}")
+        if n_ch % n_heads:
+            raise ValueError(f"{n_ch} channels do not split into {n_heads} heads")
+        self.pool_types = tuple(pool_types)
+        self.pool_mode = pool_mode
+        self.n_heads = n_heads
+        if pool_mode == "attention_v0":
+            self.att = nn.Linear(n_ch, 1)
+        else:
+            self.q_proj = nn.Linear(2 * n_ch, n_ch)
+            self.k_proj = nn.Linear(n_ch, n_ch)
+
+    def forward(self, x, mask, weight=None):
+        """x (V, N, C), mask (V, N, 1), weight (V, N, 1) or None. Returns
+        pooled (N, len(pool_types) * C) and valid (N, 1) bool."""
+        V, N, C = x.shape
+        a_sum = mask.sum(dim=0)
+        if weight is None:
+            weight = mask / (a_sum[None] + 1e-6)
+        w = weight
+        if V > 1:
+            if self.pool_mode == "attention_v0":
+                att = torch.exp(self.att(x.float()))                       # (V, N, 1)
+            else:
+                H = self.n_heads
+                D = C // H
+                qin = pool_ops(x, ("max", "mean"), mask / (a_sum[None] + 1e-6))
+                q = self.q_proj(qin.float()).reshape(N, D, H)
+                k = self.k_proj(x.float()).reshape(V, N, D, H)
+                logits = torch.einsum("ndh,vndh->vnh", q, k) / (D ** 2)
+                att = torch.exp(logits)[..., None, :].expand(V, N, D, H).reshape(V, N, C)
+            w = w * att
+            w = w / (w.sum(dim=0, keepdim=True) + 1e-6)
+        pooled = pool_ops(x, self.pool_types, w)
+        valid = a_sum > (1.0 if self.pool_types == ("var",) else 0.0)
+        return pooled, valid
 
 
 class GeoFusionMLP(nn.Module):
-    """Per-view skip-injected MLP (`layers1`) -> masked mean/var pool ->
-    fusion MLP (`layers2`)."""
+    """Per-view skip-injected MLP (`layers1`) -> masked mean/var pool, or
+    with `pool_mode` the attention pool (`pool`) -> fusion MLP
+    (`layers2`)."""
 
     def __init__(self, dims1, dims2, skip_dims, skip_layers, nl_layer="softplus",
                  weight_norm=True, pool_types=("mean", "var"), pool_mode="",
                  dtype=torch.float32):
         super().__init__()
-        if pool_mode:
-            raise NotImplementedError(
-                f"pool_mode={pool_mode!r}: AttentionPool is not ported yet "
-                "(ROADMAP Queue 1 item 2)"
-            )
         self.pool_types = tuple(pool_types)
         self.layers1 = MLPUNet(dims1, skip_dims, skip_layers, nl_layer,
                                weight_norm, dtype)
+        # registered between the two MLPs, where the JAX module builds it
+        self.pool = (AttentionPool(dims1[-1], pool_types, pool_mode) if pool_mode
+                     else None)
         self.layers2 = MLP(dims2, (), nl_layer, weight_norm, dtype=dtype)
 
     def forward(self, sp_feat, im_feats, mask, weight):
@@ -225,6 +298,9 @@ class GeoFusionMLP(nn.Module):
         (V, N, 1). Returns out (N, dims2[-1]), valid (N, 1), latent_view
         (V, N, dims1[-1]) and latent_fused (N, dims2[0])."""
         latent_view = self.layers1(sp_feat, im_feats)
-        latent_fused, valid = masked_pool(latent_view, mask, weight, self.pool_types)
+        if self.pool is not None:
+            latent_fused, valid = self.pool(latent_view, mask, weight)
+        else:
+            latent_fused, valid = masked_pool(latent_view, mask, weight, self.pool_types)
         out = self.layers2(latent_fused)
         return out, valid, latent_view, latent_fused

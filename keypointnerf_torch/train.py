@@ -5,13 +5,23 @@
     python -m keypointnerf_torch.train --config configs/zju.json --run_val --model_ckpt DIR
     python -m keypointnerf_torch.train --config configs/synthetic.json --fast_dev_run \
         --device cpu --set model.n_coarse=4 model.n_fine=4 ...
+    python -m keypointnerf_torch.train --config configs/zju.json --devices 2 ...
+    python -m keypointnerf_torch.train --config configs/zju.json \
+        --coordinator host0:29500 --num_processes 4 --process_id 0 ...
 
 Port of the JAX package's `train.py` (reference train.py:15-80): builds the
 model and the `Trainer` from a config, auto-resumes from the newest
 checkpoint, and trains or (`--run_val`) restores the best step and scores
 the val set with `evaluation.run_eval`. It runs on the card unless
-`--device` names another device. Multi-device and multi-process flags are
-a later slice and raise NotImplementedError naming ROADMAP Queue 1 item 6.
+`--device` names another device.
+
+More than one device is one process a device (`parallel/`): `--devices N`
+starts N ranks on this host (torch.multiprocessing), rank i on `cuda:i`
+(or all on the CPU with `--device cpu`); `--coordinator host:port
+--num_processes P --process_id i` makes this process rank i of a
+P-process group, on `--device` or `cuda:<i>`. The backend is NCCL for
+CUDA (a card a rank) and gloo for the CPU. `--sharded_eval` splits each
+eval image's rays over the ranks.
 """
 from __future__ import annotations
 
@@ -32,16 +42,19 @@ def create_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs on the CPU)")
     p.add_argument("--sharded_eval", action="store_true",
-                   help="partition eval-render rays across devices (not ported)")
+                   help="partition eval-render rays across the ranks")
     p.add_argument("--auto_cull_budget", type=int, default=0, metavar="N",
                    help="probe N samples and raise the exact empty-ray cull budget to cover "
                         "this dataset's visual hull; 0 = use the config budget")
     p.add_argument("--devices", type=int, default=None,
-                   help="number of devices to train on (only 1 is ported)")
+                   help="number of devices of this host to train on: one rank each")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-process coordinator address (not ported)")
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+                   help="host:port of rank 0, for a multi-process group")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="ranks in the group (one device each)")
+    p.add_argument("--process_id", type=int, default=None, help="this process's rank")
+    p.add_argument("--no_tensorboard", action="store_true",
+                   help="write metrics.jsonl only (no TensorBoard events)")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
                    help="dotted config overrides, e.g. optim.learning_rate=1e-3")
     p.add_argument("--allow_random_vgg", action="store_true",
@@ -77,32 +90,58 @@ def build_datasets(cfg):
     raise ValueError(f"unknown dataset {cfg.data.dataset}")
 
 
-def refuse_multi_device(args) -> None:
-    """Raise for the multi-device / multi-process flags (ROADMAP Queue 1
-    item 6); one device and one process are what they mean by default."""
-    given = [name for name, on in (
-        ("--devices", args.devices not in (None, 1)),
-        ("--sharded_eval", args.sharded_eval),
-        ("--coordinator", args.coordinator is not None),
-        ("--num_processes", args.num_processes not in (None, 1)),
-        ("--process_id", args.process_id not in (None, 0)),
-    ) if on]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: training or evaluating on more than one device or process "
-            "is not ported yet: ROADMAP Queue 1 item 6 (parallel/)")
+def check_process_args(args) -> None:
+    """Raise ValueError for multi-process flags that do not fit together."""
+    P = args.num_processes
+    if args.process_id is not None and P is None:
+        raise ValueError("--process_id needs --num_processes")
+    if P is not None and P > 1 and args.coordinator is None:
+        raise ValueError(f"--num_processes {P} needs --coordinator host:port (rank 0's address)")
+    if args.devices is not None and args.devices < 1:
+        raise ValueError(f"--devices must be at least 1, got {args.devices}")
+    if args.devices not in (None, 1) and P not in (None, args.devices):
+        raise ValueError(f"--devices {args.devices} starts that many ranks on this host; "
+                         f"--num_processes {P} joins a group: give one of them")
+
+
+def _rank_main(i, argv, n, port):
+    main(list(argv) + ["--coordinator", f"localhost:{port}", "--num_processes", str(n),
+                       "--process_id", str(i)])
+
+
+def launch_local(args, argv) -> None:
+    """`--devices N`: N ranks on this host, each running this CLI as rank i
+    of an N-process group at a free localhost port."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from .parallel import free_port
+
+    n = args.devices
+    if torch.device(args.device or "cuda").type == "cuda":
+        count = torch.cuda.device_count()
+        if n > count:
+            raise ValueError(
+                f"--devices {n} asks for {n} CUDA ranks, but there are {count} CUDA device(s): "
+                "NCCL puts one rank on each card")
+    mp.spawn(_rank_main, args=(list(argv), n, free_port()), nprocs=n, join=True)
 
 
 def main(argv=None):
-    """Run the CLI; returns the Trainer."""
+    """Run the CLI; returns the Trainer (None for the process that
+    launches `--devices N` ranks)."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = create_parser().parse_args(argv)
-    refuse_multi_device(args)
+    check_process_args(args)
+    if args.devices not in (None, 1) and args.num_processes is None:
+        launch_local(args, argv)
+        return None
 
     from .device import resolve_device
-    from .evaluation import run_eval
-    from .models import VGG19Features, load_torch_vgg19
-    from .training.loop import Trainer
-    from .utils import CheckpointManager, get_model, load_config
+    from .parallel import default_backend, destroy, initialize_distributed, rank_device
+    from .utils import load_config
 
     overrides = parse_overrides(args.set)
     if args.data_root:
@@ -111,6 +150,27 @@ def main(argv=None):
         overrides["out_dir"] = args.out_dir
     cfg = load_config(args.config, overrides)
     device = resolve_device(args.device)
+    joined = False
+    if args.num_processes not in (None, 1):
+        backend = default_backend(device)
+        if device.type == "cuda" and device.index is None:
+            device = rank_device(args.process_id)
+        joined = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                        backend, device)
+    try:
+        return _run(args, cfg, device)
+    finally:
+        if joined:
+            destroy()
+
+
+def _run(args, cfg, device):
+    """Build and train, or score with --run_val, on `device` (in the
+    process group, if one was joined)."""
+    from .evaluation import run_eval
+    from .models import VGG19Features, load_torch_vgg19
+    from .training.loop import Trainer
+    from .utils import CheckpointManager, get_model
 
     if cfg.purpose == "eval" and not args.run_val:
         # eval / serve presets are a training trap: their eval-only flags
@@ -139,7 +199,8 @@ def main(argv=None):
 
     model = get_model(cfg, device=device)
     train_data, val_data = build_datasets(cfg)
-    trainer = Trainer(cfg, model, train_data, val_data, vgg=vgg)
+    trainer = Trainer(cfg, model, train_data, val_data, vgg=vgg,
+                      tensorboard=not args.no_tensorboard)
 
     if args.model_ckpt:
         # an explicit checkpoint dir; eval restores the best val_total_loss
@@ -157,8 +218,8 @@ def main(argv=None):
             print(f"restored best-val step {step}")
 
     if args.run_val:
-        run_eval(cfg, model, val_data, auto_cull_budget=args.auto_cull_budget,
-                 step=trainer.state.step)
+        run_eval(cfg, model, val_data, sharded=args.sharded_eval,
+                 auto_cull_budget=args.auto_cull_budget, step=trainer.state.step)
         return trainer
     trainer.fit(max_steps=2 if args.fast_dev_run else args.max_steps)
     return trainer

@@ -17,11 +17,12 @@ mutable `TrainState` around a torch optimizer:
     mini-step; the other mini-steps leave the parameters as they are.
 
 The step takes its random draws explicitly (`training.draws.TrainDraws`).
-`train_batch_step_fn` / `eval_batch_step_fn` are the single-device
-counterparts of the JAX package's batched steps
-(`parallel/train_parallel.py:make_batch_step_fn`, `make_sharded_eval_step`):
-B samples, the mean of their totals and loss terms, one update; and the
-weighted sums of validation loss terms.
+`train_batch_step_fn` / `eval_batch_step_fn` are the counterparts of the
+JAX package's batched steps (`parallel/train_parallel.py:
+make_batch_step_fn`, `make_sharded_eval_step`): B samples, the mean of
+their totals and loss terms, one update; and the weighted sums of
+validation loss terms. Given a process group, the train step is its
+data-parallel form (the port's `parallel/train_parallel.py`).
 """
 from __future__ import annotations
 
@@ -188,13 +189,16 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def train_batch_step_fn(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainState,
-                        batch: Sequence[ViewBatch], draws: Sequence[TrainDraws]
-                        ) -> Dict[str, torch.Tensor]:
+                        batch: Sequence[ViewBatch], draws: Sequence[TrainDraws],
+                        group=None) -> Dict[str, torch.Tensor]:
     """One optimizer step (or accumulation mini-step) on B samples, with one
     `TrainDraws` each: the mean of the per-sample totals is differentiated,
     the loss terms are the per-sample means, and grad_norm is the global
-    norm of the raw gradients. Updates `state` in place and returns the
-    detached terms."""
+    norm of the raw gradients. With a process `group` (torch.distributed;
+    None is no group) `batch` is this rank's slice of the global batch,
+    and the gradients and terms are the means over the ranks
+    (`parallel.train_parallel.reduce_step`) before grad_norm and the
+    update. Updates `state` in place and returns the detached terms."""
     params = list(model.parameters())
     totals, errs = [], []
     for vb, d in zip(batch, draws, strict=True):
@@ -205,6 +209,10 @@ def train_batch_step_fn(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainS
     grads = torch.autograd.grad(total, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     err = {k: torch.stack([e[k] for e in errs]).mean().detach() for k in errs[0]}
+    if group is not None:
+        from ..parallel import train_parallel
+
+        grads, err = train_parallel.reduce_step(grads, err, group)
     err["grad_norm"] = global_norm(grads).detach()
     apply_gradients(state, params, grads)
     state.step += 1

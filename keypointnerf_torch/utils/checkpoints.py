@@ -15,6 +15,10 @@ written under a temporary name and renamed into place, so a reader never
 sees half a checkpoint. Saves are synchronous: `wait` and `close` have
 nothing to wait for. JAX checkpoints are not read here; weights cross
 between the packages through `utils/convert.py`.
+
+With a process `group` (data-parallel training: the state is the same in
+every rank) only rank 0 writes, and every rank then passes a barrier, so
+no rank reads or resumes a save that is not complete.
 """
 from __future__ import annotations
 
@@ -25,21 +29,30 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.process_group import barrier, rank
+
 
 # the metric whose least value marks the best step
 MONITOR = "val_total_loss"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, group=None):
+        """`group`: the torch.distributed group whose rank 0 writes (None:
+        this process writes)."""
         self._dir = os.path.abspath(directory)
-        os.makedirs(self._dir, exist_ok=True)
+        self._group = group
+        self._writes = group is None or rank(group) == 0
+        if self._writes:
+            os.makedirs(self._dir, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self._dir, str(step))
 
     def steps(self) -> list:
         """The saved steps, ascending."""
+        if not os.path.isdir(self._dir):
+            return []
         return sorted(int(n) for n in os.listdir(self._dir) if n.isdigit())
 
     def save(self, step: int, state: Any, metrics: Optional[dict] = None,
@@ -47,7 +60,15 @@ class CheckpointManager:
         """Save `state` (anything with `state_dict()`, a `TrainState`) at
         `step`, with JSON `metrics` (best-step tracking) and `extra`
         (schedule metadata that must survive a restart). A second save of
-        the same step replaces the first."""
+        the same step replaces the first. With a group, rank 0 writes and
+        every rank waits for it."""
+        if self._writes:
+            self._write(step, state, metrics, extra)
+        if self._group is not None:
+            barrier("checkpoint", self._group)
+
+    def _write(self, step: int, state: Any, metrics: Optional[dict],
+               extra: Optional[dict]) -> None:
         final = self._path(step)
         tmp = os.path.join(self._dir, f".{step}.tmp-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)

@@ -14,7 +14,11 @@ package's `utils/import_torch.py`:
 
 Flax names its submodules in call (construction) order; the key
 arithmetic below mirrors the importer's (ResBlk `layers.{idx}` indices,
-the IBR head's interleaved `Dense_i`).
+the IBR head's interleaved `Dense_i`). The attention pool of `pool_mode`
+(Flax `mlp_geo/AttentionPool_0`, its Dense layers numbered in call order:
+`Dense_0` the v0 logit or the v1 query, `Dense_1` the v1 key) has no key
+in the importer; its leaves go to `mlp_geo.pool.{att | q_proj, k_proj}`
+(`models/mlp.py:AttentionPool`).
 
 Every step is a rename, a transpose or a reshape of one leaf, so the same
 functions carry a JAX *gradient* tree (same structure as the params) onto
@@ -144,6 +148,10 @@ _IBR_DENSE = {
 }
 
 
+# the attention pool's port keys, in the Flax Dense numbering (call order)
+POOL_DENSE = {"attention_v0": ("att",), "attention_v1": ("q_proj", "k_proj")}
+
+
 def state_dict_from_jax(params: Mapping, cfg) -> StateDict:
     """The port's state_dict for the JAX model's params.
 
@@ -158,6 +166,11 @@ def state_dict_from_jax(params: Mapping, cfg) -> StateDict:
                     cfg.tex_n_upsample, p["tex_encoder"])
     _mlp_layers(sd, "mlp_geo.layers1", len(cfg.mlp_dims1) - 1, p["mlp_geo"]["MLPUNet_0"])
     _mlp_layers(sd, "mlp_geo.layers2", len(cfg.mlp_dims2) - 1, p["mlp_geo"]["MLP_0"])
+    if cfg.pool_mode:
+        pool = p["mlp_geo"]["AttentionPool_0"]
+        names = POOL_DENSE[cfg.pool_mode]
+        for i, ref in enumerate(names):
+            _dense(sd, f"mlp_geo.pool.{ref}", pool[f"Dense_{i}"])
     head = p["ibr_head"]
     sd["mlp_tex.ani_al"] = _t(head["ani_al"])
     for ref, flax_name in _IBR_DENSE.items():

@@ -178,10 +178,12 @@ def test_run_eval_auto_cull_budget(tmp_path, capsys):
     assert len(glob.glob(str(tmp_path / "auto_cull" / "images_v3" / "h" / "*" / "*.png"))) == 5
     assert model.cfg.cull_empty_rays_ratio == 0.02      # the caller's model is untouched
 
-    run_eval(cfg, model, data, result_dir=str(tmp_path / "plain"), max_samples=1)
+    plain = run_eval(cfg, model, data, result_dir=str(tmp_path / "plain"), max_samples=1)
     assert "WARNING: sample 0: empty-ray cull budget exceeded" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        run_eval(cfg, model, data, sharded=True)
+    # one process: sharded=True is the unsharded render, as in JAX
+    # (multi-rank runs: tests/test_torch_parallel.py)
+    assert run_eval(cfg, model, data, result_dir=str(tmp_path / "sharded"), max_samples=1,
+                    sharded=True) == plain
 
 
 def test_render_cameras_scanned_matches_jax(world):

@@ -268,10 +268,23 @@ def test_union_path_and_cull_guards(world):
 
 
 @pytest.mark.parametrize("flag", [dict(separate_cf=True), dict(pool_mode="attention_v0")])
-def test_unported_flags_raise(flag):
-    cfg = dataclasses.replace(tm.KeypointNeRFConfig(**TINY), **flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.KeypointNeRF(cfg, device="cpu")
+def test_model_rest_flags_build_and_render(world, flag):
+    """`separate_cf` and the attention pools are ported: each builds (the
+    fusion MLP's third output, the pool's layers) and renders the toy
+    strict camera with finite outputs and the overflow guard at 0 (held
+    against the JAX package in tests/test_torch_model_rest.py)."""
+    model = tm.KeypointNeRF(dataclasses.replace(world["tc"], **flag), device="cpu")
+    sd = model.state_dict()
+    sd.update({k: v for k, v in world["model"].state_dict().items() if sd[k].shape == v.shape})
+    model.load_state_dict(sd)
+    extra = {k for k in sd if k.startswith("mlp_geo.pool.")}
+    assert bool(extra) == ("pool_mode" in flag)
+    assert sd["mlp_geo.layers2.layers.2.linear.weight"].shape[0] == (3 if "separate_cf" in flag
+                                                                    else 2)
+    out = render_image(model, world["tvb"], height=SIZE, width=SIZE, stride=2, chunk=CHUNK)
+    assert out["rgb_fine"].shape == (SIZE // 2, SIZE // 2, 3)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    assert float(out.pop("cull_overflow").max()) == 0.0
 
 
 @pytest.mark.parametrize("flag", [

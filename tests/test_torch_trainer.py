@@ -15,7 +15,9 @@ narrower texture encoder:
     and a finished epoch budget survives a resume;
   * the CLIs (`keypointnerf_torch.train`, `keypointnerf_torch.eval_zju`),
     run in-process: --fast_dev_run, --run_val and the re-scoring of its
-    PNG tree, each refusal naming its ROADMAP item, the lambda_vgg gate;
+    PNG tree, each refusal (the multi-process flags that do not fit
+    together, the data paths naming their ROADMAP item), the lambda_vgg
+    gate;
   * StepTimer, check_finite, trace and the torchvision VGG19 loader.
 
 TensorBoard stays off (its import pulls in TensorFlow here: 10+ s); the
@@ -346,15 +348,23 @@ def test_cli_fast_dev_run_run_val_and_rescore(tmp_path):
     assert abs(scores["ssim"] - float(yml["ssim"])) <= 2e-3
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--devices", "2"], "item 6"), (["--sharded_eval"], "item 6"),
-    (["--coordinator", "localhost:1234"], "item 6"), (["--num_processes", "2"], "item 6"),
-    (["--process_id", "1"], "item 6"), (["--set", *TOY_SET, "data.dataset=zju"], "item 7"),
-    (["--set", *TOY_SET, "data.num_workers=2"], "item 7"),
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--device", "cuda", "--devices", str(torch.cuda.device_count() + 2)], ValueError,
+     f"--devices {torch.cuda.device_count() + 2} asks for .* there are "
+     f"{torch.cuda.device_count()} CUDA device"),
+    (["--process_id", "1"], ValueError, "--process_id needs --num_processes"),
+    (["--num_processes", "2", "--process_id", "1"], ValueError,
+     "--num_processes 2 needs --coordinator"),
+    (["--set", *TOY_SET, "data.dataset=zju"], NotImplementedError, "ROADMAP Queue 1 item 7"),
+    (["--set", *TOY_SET, "data.num_workers=2"], NotImplementedError, "ROADMAP Queue 1 item 7"),
 ])
-def test_cli_refusals_name_their_item(tmp_path, argv, item):
+def test_cli_refusals_name_their_item(tmp_path, argv, exc, match):
+    """What the CLI still refuses: more NCCL ranks than cards (both numbers
+    named), --process_id without --num_processes, a group of P > 1 without
+    a coordinator (each before any process starts), and the item-7 data
+    paths, naming their ROADMAP item."""
     base = ["--device", "cpu", "--out_dir", str(tmp_path), "--allow_random_vgg"]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+    with pytest.raises(exc, match=match):
         run_cli(*base, *argv)
 
 
