@@ -134,7 +134,35 @@ Phases (any failure exits nonzero):
      a val and a checkpoint, a resume bit-equal to the saved state, to 4;
      rank 0 alone writes) and run_eval(sharded=True) on 2 samples (scores
      equal to the unsharded run's); each phase's seconds printed;
- 12. prints the kernels line, the card line and, last, the result line.
+ 12. gate: the port's training-quality gate (`python -m
+     keypointnerf_torch.quality_gate`'s main()) at gate geometry for 150
+     steps with one evaluation, recorded into build/chip_smoke_gate/:
+     s/step, K1 twice a step, the host's waits on the device in a chunk
+     (torch.cuda's sync debug mode), the loss of the first and last chunk,
+     finite seen / unseen PSNR / SSIM and the fast preset's cull overflow 0
+     (the gate exits 1 otherwise);
+ 13. data: a fake ZJU-MoCap tree at the dataset's geometry (1024² PNG
+     images and the two grey masks a view, mask/ and mask_cihp/, their rows
+     filtered as camera PNGs are, 21 cameras, every subject of both splits
+     sharing files by symlink, 313 / 315 with empty image lists) under
+     build/chip_smoke_data/: the native library built from
+     native/kpnerf_data.cc, the loader's samples/s inline and with 4
+     prefetcher threads (bit-equal samples), the train CLI fed from the tree
+     (`--set data.dataset=zju data.num_workers=4`, and 0, 8 steps each,
+     K1 twice a step; s/step and the host's share), --run_val on the val
+     split, and render_dynamic for 2 orbit frames with configs/zju_fast.json
+     (cull_overflow 0);
+ 14. prints the kernels line, the card line and, last, the result line.
+
+The train phase also lists the ops torch reports as nondeterministic in
+one zju step (use_deterministic_algorithms, warn only); the trainer phase
+also runs the first call with 4 loader workers; model_rest also times
+K5's 3-output module path and renders the 2-output camera with
+reuse_coarse_eval=False (the 128-depth union), a separate_cf model
+with rad_f tied to rad_c, the 2-output union with its radiance bias
+raised until as many rays are opaque as separate_cf's fine pass makes,
+and separate_cf with rad_c's bias raised until its coarse pass is as
+opaque as its fine pass, each K5 on against off (union_k5_render).
 
 `--phases kernels,render,...` runs a subset while developing (the result
 line is printed only by a full run).
@@ -1478,17 +1506,36 @@ def render_full_width(dev):
 # The bounds are each render's own: (mean, share), measured and doubled.
 K5_RENDER_BOUNDS = (3e-4, 4e-4)      # 512² K5: measured 1.15e-4, 1.64e-4 (acc_fine)
 K4_RENDER_BOUNDS = (1.5e-4, 6e-5)    # 256² rel_z K4: 6.89e-5 (acc_fine), 2.54e-5 (rgb_fine)
-# 512² separate_cf K5 (3 outputs): the fine pass evaluates the 128-depth
-# union with rad_f, twice the samples a ray in which an activation can
-# round the other way: measured 1.56e-4 (sdf_fine), 5.38e-4 (rgb_fine)
+# 512² separate_cf K5 (3 outputs): measured 1.56e-4 (sdf_fine), 5.38e-4
+# (rgb_fine). Its own rays, not the 3-output path (union_k5_render): 284 of
+# the 303 rays off by > 1% are left transparent by the coarse pass (rad_c)
+# and made opaque by the fine pass (rad_f), so their fine samples are drawn
+# from a near-empty coarse pdf that rounding moves; with rad_c's bias raised
+# until the coarse pass is as opaque as the fine, the same model deviates
+# 1.20e-4 / 2.29e-5, inside K5_RENDER_BOUNDS. Neither the 128-depth union
+# (1.15e-4 / 1.64e-4), the 3-output path with rad_f tied to rad_c
+# (bit-equal to 2 outputs) nor the opaque area alone (a 2-output union as
+# opaque as rad_f: 7.01e-5 / 3.43e-5) leaves K5_RENDER_BOUNDS.
 K5_SEPARATE_CF_RENDER_BOUNDS = (3.5e-4, 1.1e-3)
 
 
 def compare_renders(ref, got, what, bounds):
-    """Every output of `got` finite and within `bounds` (mean, share) of `ref`.
-    depth and sdf are ratios of two near-zero sums on rays that hit almost
-    nothing, where rounding alone moves them by their whole range: their
-    numerators x (acc + 1e-8) are held instead."""
+    """Every output of `got` finite and within `bounds` (mean, share) of
+    `ref` (render_deviation)."""
+    worst_mean, worst_share = render_deviation(ref, got, what)
+    print(f"{what}: worst mean {worst_mean:.3e} (bound {bounds[0]}), worst share "
+          f"{worst_share:.3e} (bound {bounds[1]})", flush=True)
+    if not (worst_mean <= bounds[0] and worst_share <= bounds[1]):
+        raise SystemExit(f"{what}: the flag-on render deviates from the flag-off render")
+    return worst_mean, worst_share
+
+
+def render_deviation(ref, got, what):
+    """(worst mean, worst share off by > 1%) of `got`'s outputs against
+    `ref`'s, each as a share of the output's max; every output of `got`
+    must be finite. depth and sdf are ratios of two near-zero sums on rays
+    that hit almost nothing, where rounding alone moves them by their whole
+    range: their numerators x (acc + 1e-8) are held instead."""
     worst_mean = worst_share = 0.0
     rows = []
     for k, a in ref.items():
@@ -1508,11 +1555,9 @@ def compare_renders(ref, got, what, bounds):
         rows.append(f"{k} mean {mean:.3e}, {share:.3e} of entries off by > 1%, worst "
                     f"{dev.max().item():.3e}")
         worst_mean, worst_share = max(worst_mean, mean), max(worst_share, share)
-    print(f"{what}, deviation as a share of each output's max: {'; '.join(rows)}; worst mean "
-          f"{worst_mean:.3e} (bound {bounds[0]}), worst share {worst_share:.3e} (bound "
-          f"{bounds[1]}); depth and sdf as their numerators", flush=True)
-    if not (worst_mean <= bounds[0] and worst_share <= bounds[1]):
-        raise SystemExit(f"{what}: the flag-on render deviates from the flag-off render")
+    print(f"{what}, deviation as a share of each output's max: {'; '.join(rows)}; depth and "
+          f"sdf as their numerators", flush=True)
+    return worst_mean, worst_share
 
 
 def render_fused(dev, ctx) -> dict:
@@ -2377,6 +2422,7 @@ def compare_first_step_grads(off, run, what, loss_bound=REMAT_LOSS_BOUND) -> Non
 
 
 TRAINER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
+TRAINER_DIR_WORKERS = TRAINER_DIR.with_name("chip_smoke_trainer_workers")
 TRAINER_ARGS = ["--config", str(ZJU_CONFIG), "--allow_random_vgg", "--out_dir", str(TRAINER_DIR),
                 "--set", "data.dataset=synthetic", "data.image_size=512", "max_epochs=1",
                 "log_every_steps=2", "val_every_steps=4", "ckpt_every_steps=4"]
@@ -2489,6 +2535,21 @@ def trainer_cli(bare_s_per_step) -> None:
           f"host making samples {data} s/step, {sum(data) / sum(loop):.3f} of the loop's wall "
           f"clock", flush=True)
 
+    # the same first call with 4 loader workers (the native prefetcher)
+    shutil.rmtree(TRAINER_DIR_WORKERS, ignore_errors=True)
+    pooled = cli.main(TRAINER_ARGS + ["data.num_workers=4", "--out_dir",
+                                      str(TRAINER_DIR_WORKERS), "--max_steps", "8"])
+    rows = [json.loads(line) for line in open(TRAINER_DIR_WORKERS / "zju" / "metrics.jsonl")]
+    train_w = {r["step"]: r for r in rows if "train/e_all" in r}
+    loop_w = [train_w[s]["train/step_time_s"] for s in (4, 6, 8)]
+    data_w = [train_w[s]["train/data_time_s"] for s in (4, 6, 8)]
+    print(f"trainer loop with data.num_workers=4: {loop_w} s/step, mean {sum(loop_w) / 3:.4f} "
+          f"(inline {sum(loop) / 3:.4f}); host making samples {data_w} s/step, "
+          f"{sum(data_w) / sum(loop_w):.3f} of the loop (inline {sum(data) / sum(loop):.3f})",
+          flush=True)
+    if pooled.state.step != 8 or not all(math.isfinite(v) for r in rows for v in r.values()):
+        raise SystemExit("the trainer with 4 loader workers did not train 8 finite steps")
+
 
 def train_agreement_small(dev, radiance_bias=0.0, **overrides) -> None:
     """One toy f32 zju-recipe step on the card against the same step on the
@@ -2590,9 +2651,11 @@ DOUT3_DIMS2 = GEO_DIMS2[:-1] + (GEO_DIMS2[-1] + 1,)
 def check_k5_three_outputs(dev) -> dict:
     """K5 at 3 outputs against its plain version, bf16 products, with its
     time, the plain version's and the bound; returns those numbers."""
+    from keypointnerf_torch.models.spatial_encoding import SpatialEncodingConfig, spatial_encode
     from keypointnerf_torch.ops import fused_geo_mlp as fg
 
     mlp = seeded_geo_mlp(dev, seed=5, dims2=DOUT3_DIMS2)
+    enc = SpatialEncodingConfig()
     with torch.no_grad():
         ws = [w.clone() for w in fg.fold_weight_norm(mlp)]
     V, K, bf = 3, 24, torch.bfloat16
@@ -2627,19 +2690,30 @@ def check_k5_three_outputs(dev) -> dict:
                          iters=10)
             plain_ms = cuda_ms(lambda: fg.sp_mlp_stack_plain(*lead, *rest, ws, compute_dtype=bf),
                                iters=3, warmup=1)
+
+            def module_path():
+                # what the kernel replaces in query_points: spatial_encode +
+                # GeoFusionMLP.forward in bf16 (check_fused_geo_mlp's module path)
+                sp = spatial_encode(enc, None, x["pts_cam"], None, x["kpt_cam"])
+                return mlp(sp.to(bf), [x["f0"].to(bf), x["f1"].to(bf)], x["mask"].to(bf),
+                           x["weight"].to(bf))
+
+            module_ms = cuda_ms(module_path, iters=3, warmup=1)
         n_bytes = 4 * (sum(t.numel() for t in (*lead, *rest)) + sum(w.numel() for w in ws)
                        + N * (V * GEO_DIMS1[4] + 2 * GEO_DIMS1[4] + DOUT3_DIMS2[3] + 1))
         b = geo_mlp_bound(N, V, K, True, geo_mlp_op_counts(), n_bytes, dims2=DOUT3_DIMS2)
         print(f"K5 at 3 outputs (separate_cf), V={V} N={N} bf16, routes {routes}: worst error "
               f"{worst:.3e} of an output's max (bound 5e-3), mean {mean:.3e} (bound 1e-6); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-              f"({b['binds']})", flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, module path (spatial_encode + "
+              f"GeoFusionMLP.forward, bf16, no_grad) {module_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['binds']})", flush=True)
         if routes != {"wgmma": 1}:
             raise SystemExit("K5 at 3 outputs did not take the wgmma route")
         if not (worst <= 5e-3 and mean <= 1e-6):
             raise SystemExit("K5 at 3 outputs disagrees with its plain version")
         res[str(N)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
-                           bound_by=b["bound_by"], max_abs_err=abs_err)
+                           bound_by=b["bound_by"], max_abs_err=abs_err,
+                           module_path_ms=module_ms)
     return res
 
 
@@ -2716,11 +2790,167 @@ def render_model_rest(dev) -> dict:
     k5_out, n5 = timed(k5_model, vb, "separate_cf + use_pallas_geo_mlp (K5 at 3 outputs)")
     if n5["k5"] != want or n5["k2"] != want:
         raise SystemExit(f"K5 and K2 must each run once a query ({want} a camera)")
-    compare_renders(out, k5_out, "512² separate_cf render, K5 on vs off",
-                    K5_SEPARATE_CF_RENDER_BOUNDS)
+    sep = compare_renders(out, k5_out, "512² separate_cf render, K5 on vs off",
+                          K5_SEPARATE_CF_RENDER_BOUNDS)
     launches["sp_fused_geo_mlp"] = n5["k5"]
     print(f"separate_cf render {n['seconds']:.4f} s, with K5 {n5['seconds']:.4f} s", flush=True)
+    mismatched_rays(out, k5_out)
+    sep_opaque = (opaque_rays(out), opaque_rays(k5_out))
+    del model, k5_model, out, k5_out
+    union_k5_render(dev, timed, sep, sep_opaque)
     return launches
+
+
+def tied_separate_cf(model, cfg):
+    """A separate_cf model with `model`'s weights (2 outputs) and the third
+    output's row of the last geometry layer a copy of the second's: rad_f ==
+    rad_c, so it renders what `model` renders with reuse_coarse_eval off."""
+    from keypointnerf_torch.models import KeypointNeRF
+
+    tied = KeypointNeRF(dataclasses.replace(cfg, separate_cf=True), device=model.device)
+    state = {}
+    for k, v in model.state_dict().items():
+        want = tied.state_dict()[k].shape
+        state[k] = v if v.shape == want else torch.cat([v, v[1:2]], dim=0)
+    tied.load_state_dict(state)
+    return tied
+
+
+def opaque_rays(out, which="fine") -> int:
+    """Rays a pass makes opaque: acc > 0.5."""
+    return int((out[f"acc_{which}"] > 0.5).sum())
+
+
+def mismatched_rays(ref, got) -> None:
+    """Where separate_cf's K5 render deviates: its rays whose rgb_fine is
+    off by more than 1% of the output's max, and how many of them the
+    coarse pass leaves transparent (acc_coarse <= 0.5) while the fine pass
+    makes them opaque (acc_fine > 0.5)."""
+    a, b = ref["rgb_fine"].float(), got["rgb_fine"].float()
+    off = ((a - b).abs() / a.abs().max()).reshape(-1, a.shape[-1]).amax(-1) > 0.01
+    split = ((ref["acc_coarse"] <= 0.5) & (ref["acc_fine"] > 0.5)).reshape(-1)
+    print(f"separate_cf, K5 on vs off: {int(off.sum())} rays off by > 1% in rgb_fine, "
+          f"{int((off & split).sum())} of them transparent in the coarse pass and opaque in "
+          f"the fine ({int(split.sum())} such rays of {split.numel()})", flush=True)
+
+
+def raise_bias_until(model, vb, channel, count, target) -> float:
+    """Raise the last geometry layer's bias of output `channel` by the least
+    amount (within 1/8, at most 8) at which `count(render)` of the flag-off
+    render reaches `target`; leaves it raised and returns the amount."""
+    from keypointnerf_torch.render import render_image
+
+    bias = model.mlp_geo.layers2.layers[-1].linear.bias
+    base = bias.detach().clone()
+    feats = model.encode(vb.src_images, vb.src_masks)
+
+    def reached(extra):
+        with torch.no_grad():
+            bias.copy_(base)
+            bias[channel] += extra
+        return count(render_image(model, vb, height=RIG, width=RIG, chunk=2048,
+                                  feats=feats)) >= target
+
+    lo, hi = 0.0, 8.0
+    if not reached(hi):
+        raise SystemExit(f"raising output {channel}'s bias by {hi} does not reach {target}")
+    if reached(lo):
+        hi = lo
+    while hi - lo > 1 / 8:
+        mid = (lo + hi) / 2
+        lo, hi = (lo, mid) if reached(mid) else (mid, hi)
+    reached(hi)
+    return hi
+
+
+def within(dev, bounds) -> bool:
+    return dev[0] <= bounds[0] and dev[1] <= bounds[1]
+
+
+def union_k5_render(dev, timed, sep, sep_opaque) -> None:
+    """Why the separate_cf K5 render (its deviation `sep`; `sep_opaque` the
+    opaque rays of its fine pass, K5 off and on) sits above
+    K5_RENDER_BOUNDS. Each render K5 on against off:
+    (1) the same camera with 2 outputs and reuse_coarse_eval=False (the fine
+    pass evaluates the 128-depth union, as separate_cf's does);
+    (2) the separate_cf model with rad_f's row tied to rad_c's
+    (tied_separate_cf): (1)'s scene through the 3-output path, so its
+    deviation against (1)'s tests that path, and the flag-off tied render
+    against (1)'s flag-off render tests the modules';
+    (3) (1) with its radiance bias raised (raise_bias_until) until its fine
+    pass makes as many rays opaque as separate_cf's: the opaque area alone;
+    (4) separate_cf with rad_c's bias raised until its coarse pass makes as
+    many rays opaque as its fine pass: the same 3-output path, rad_f as it
+    is, without the rays the coarse pass leaves transparent and the fine
+    pass makes opaque (their fine samples are drawn from a near-empty
+    coarse pdf, which rounding moves).
+    (3) is printed; separate_cf may sit above K5_RENDER_BOUNDS only where
+    (4) holds inside them, which shows the deviation to be those
+    rays', not the 3-output path's. All are held at
+    K5_SEPARATE_CF_RENDER_BOUNDS."""
+    from keypointnerf_torch.models import KeypointNeRF
+
+    cfg, model, vb = strict_camera(dev, reuse_coarse_eval=False)
+    off, _ = timed(model, vb, "reuse_coarse_eval=False (2 outputs)")
+    k5_model = KeypointNeRF(dataclasses.replace(cfg, use_pallas_geo_mlp=True), device=dev,
+                            seed=0)
+    k5_model.load_state_dict(model.state_dict())
+    on, n5 = timed(k5_model, vb, "reuse_coarse_eval=False + use_pallas_geo_mlp (K5, 2 outputs)")
+    del k5_model
+    tied = tied_separate_cf(model, cfg)
+    tied_off, _ = timed(tied, vb, "separate_cf with rad_f tied to rad_c")
+    tied_k5 = tied_separate_cf(model, dataclasses.replace(cfg, use_pallas_geo_mlp=True))
+    tied_on, n3 = timed(tied_k5, vb, "separate_cf with rad_f tied to rad_c + K5 at 3 outputs")
+    del tied, tied_k5
+
+    hi = raise_bias_until(model, vb, 1, opaque_rays, sep_opaque[0])
+    area_off, _ = timed(model, vb, f"2 outputs, union, radiance bias +{hi:.4f} more")
+    k5_model = KeypointNeRF(dataclasses.replace(cfg, use_pallas_geo_mlp=True), device=dev,
+                            seed=0)
+    k5_model.load_state_dict(model.state_dict())
+    area_on, _ = timed(k5_model, vb, f"2 outputs, union, radiance bias +{hi:.4f} more + K5")
+    del k5_model, model
+    cfg, model, vb = strict_camera(dev, separate_cf=True)
+    c_hi = raise_bias_until(model, vb, 1, functools.partial(opaque_rays, which="coarse"),
+                            sep_opaque[0])
+    matched_off, _ = timed(model, vb, f"separate_cf, rad_c's bias +{c_hi:.4f} more")
+    k5_model = KeypointNeRF(dataclasses.replace(cfg, use_pallas_geo_mlp=True), device=dev,
+                            seed=0)
+    k5_model.load_state_dict(model.state_dict())
+    matched_on, _ = timed(k5_model, vb, f"separate_cf, rad_c's bias +{c_hi:.4f} more + K5")
+    del model, k5_model
+    print(f"separate_cf with rad_c's bias raised: opaque rays coarse "
+          f"{opaque_rays(matched_off, 'coarse')}, fine {opaque_rays(matched_off)}", flush=True)
+    print(f"fine-pass opaque rays (acc_fine > 0.5), K5 off / on: separate_cf {sep_opaque}, "
+          f"2 outputs union {opaque_rays(off), opaque_rays(on)}, 3 outputs tied "
+          f"{opaque_rays(tied_off), opaque_rays(tied_on)}, opaque area matched "
+          f"{opaque_rays(area_off), opaque_rays(area_on)}", flush=True)
+    rows = {}
+    for what, ref, got in (
+            ("2 outputs, the 128-depth union, K5 on vs off", off, on),
+            ("3 outputs tied, K5 on vs off", tied_off, tied_on),
+            ("3 outputs tied vs 2 outputs, flag off", off, tied_off),
+            ("3 outputs tied vs 2 outputs, K5", on, tied_on),
+            ("2 outputs, opaque area matched, K5 on vs off", area_off, area_on),
+            ("separate_cf, coarse opacity matched, K5 on vs off", matched_off, matched_on)):
+        same = all(torch.equal(ref[k], got[k]) for k in ref)
+        rows[what] = (0.0, 0.0) if same else render_deviation(ref, got, f"512² {what}")
+        print(f"512² {what}: {'bit-equal' if same else 'worst mean %.3e, worst share %.3e' % rows[what]}",
+              flush=True)
+    rows["separate_cf, K5 on vs off"] = sep
+    for what in ("2 outputs, the 128-depth union, K5 on vs off", "3 outputs tied, K5 on vs off",
+                 "2 outputs, opaque area matched, K5 on vs off",
+                 "separate_cf, coarse opacity matched, K5 on vs off", "separate_cf, K5 on vs off"):
+        print(f"{what}: K5_RENDER_BOUNDS {K5_RENDER_BOUNDS} "
+              f"{'held' if within(rows[what], K5_RENDER_BOUNDS) else 'exceeded'}", flush=True)
+        if not within(rows[what], K5_SEPARATE_CF_RENDER_BOUNDS):
+            raise SystemExit(f"{what}: beyond K5_SEPARATE_CF_RENDER_BOUNDS "
+                             f"{K5_SEPARATE_CF_RENDER_BOUNDS}")
+    matched = rows["separate_cf, coarse opacity matched, K5 on vs off"]
+    if not within(sep, K5_RENDER_BOUNDS) and not within(matched, K5_RENDER_BOUNDS):
+        raise SystemExit("separate_cf's K5 render exceeds K5_RENDER_BOUNDS with its coarse pass "
+                         "as opaque as its fine pass too: the cause is not shown")
+    print(f"K5 launches: 2 outputs {n5['k5']}, 3 outputs tied {n3['k5']}", flush=True)
 
 
 # ------------------------------------------------------ more than one device
@@ -3207,8 +3437,292 @@ def parallel_phase(dev) -> dict:
     return dict(k1_launches=[s["k1"] for s in steps[0]["steps"]],
                 k1_ms=[st["k1_ms"] for st in steps], k2_launches=[x["k2"] for x in ren])
 
+# ------------------------------------- the quality gate and the ZJU data path
+GATE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_gate"
+# three chunks of 50: the first warms up, the second is timed, the third
+# runs under torch.cuda's sync debug mode (each wait on the device warns)
+GATE_STEPS, GATE_CHUNK = 150, 50
+
+
+def gate_phase(dev) -> dict:
+    """The port's training-quality gate (`python -m
+    keypointnerf_torch.quality_gate`'s main()) at gate geometry for
+    GATE_STEPS steps with one evaluation, its run recorded into a file of
+    its own under build/: s/step, K1 launches a step (2), the host's waits
+    in a chunk (1: the chunk's fetch), the loss of the first and last
+    chunk, seen / unseen PSNR / SSIM, the fast preset's delta (the gate
+    exits 1 on a cull overflow). The training step makes no host sync, so
+    the one wait a chunk is its fetch. Returns K1's launches a step."""
+    import shutil
+    import warnings
+
+    from keypointnerf_torch import quality_gate as qg
+    from keypointnerf_torch.ops import multiview_dmap_onehot as k1
+
+    shutil.rmtree(GATE_DIR, ignore_errors=True)
+    GATE_DIR.mkdir(parents=True)
+    chunks, train = [], qg.train_gate
+
+    def observed(*args, **kwargs):
+        it = train(*args, **kwargs)
+        while True:
+            before, t0 = k1.launches, time.perf_counter()
+            syncs = None
+            if len(chunks) == 2:
+                # each wait, by the line of Python that made it
+                syncs = {}
+
+                def record(message, category, filename, lineno, file=None, line=None):
+                    if "synchronizing CUDA operation" in str(message):
+                        where = f"{Path(filename).name}:{lineno}"
+                        syncs[where] = syncs.get(where, 0) + 1
+
+                with warnings.catch_warnings():
+                    warnings.simplefilter("always")
+                    warnings.showwarning = record
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        row = next(it, None)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+            else:
+                row = next(it, None)
+            if row is None:
+                return
+            chunks.append(dict(step=row[0], loss=row[1], gn_max=row[2], gn_at=row[3],
+                               seconds=time.perf_counter() - t0,
+                               k1=k1.launches - before,
+                               syncs=syncs))
+            yield row
+
+    qg.train_gate = observed
+    k1.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = qg.main(["--steps", str(GATE_STEPS), "--steps-chunk", str(GATE_CHUNK),
+                       "--write-thresholds", "--thresholds", str(GATE_DIR / "gate.json")])
+    finally:
+        qg.train_gate = train
+    wall = time.perf_counter() - t0
+    for c in chunks:
+        print(f"gate chunk to step {c['step']}: {c['seconds']:.2f} s = "
+              f"{c['seconds'] / GATE_CHUNK:.4f} s/step, loss {c['loss']:.5f}, grad norm max "
+              f"{c['gn_max']:.4e} at step {c['gn_at']}, K1 launches {c['k1']} = "
+              f"{c['k1'] / GATE_CHUNK} a step", flush=True)
+    syncs = chunks[2]["syncs"]
+    print(f"gate: {GATE_STEPS} steps + one evaluation in {wall:.1f} s; s/step (the second "
+          f"chunk) {chunks[1]['seconds'] / GATE_CHUNK:.4f}; loss first chunk "
+          f"{chunks[0]['loss']:.5f}, last {chunks[-1]['loss']:.5f}; host waits on the device in "
+          f"the third chunk (sync debug mode), by line: {syncs}; results {res}", flush=True)
+    if sum(syncs.values()) != 1:
+        raise SystemExit(f"the gate's chunk waited on the device {syncs}: once, its fetch, "
+                         "is all it may")
+    per_step = {c["k1"] / GATE_CHUNK for c in chunks}
+    if per_step != {2.0}:
+        raise SystemExit(f"K1 must run twice a gate step: {per_step}")
+    for split in ("seen", "unseen"):
+        if not all(math.isfinite(v) for v in res[split].values()):
+            raise SystemExit(f"gate: {split} scores not finite: {res[split]}")
+    if not all(math.isfinite(c["loss"]) for c in chunks):
+        raise SystemExit("gate: a chunk's loss is not finite")
+    return {"k1_per_step": 2}
+
+
+DATA_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
+# ZJU-MoCap's own geometry: 1024² images (the 0.5 ratio makes them 512²), 21
+# cameras (the val split's sources 0, 7, 15 and SAMPLE_CAM_DEFAULT's 20)
+ZJU_IMAGE, ZJU_CAMS, LOADER_SAMPLES = 1024, 21, 16
+
+
+def zju_tree() -> str:
+    """A fake ZJU-MoCap tree under build/ at the dataset's geometry, every
+    subject of the train and test splits sharing the files by symlink,
+    313 / 315 with empty `ims` lists (their paths are forced to .jpg)."""
+    import shutil
+
+    from keypointnerf_torch.data.fake_zju import write_fake_tree
+    from keypointnerf_torch.data.image_io import read_png_rows
+    from keypointnerf_torch.data.zju import get_human_split
+
+    root = DATA_DIR / "zju_tree"
+    shutil.rmtree(root, ignore_errors=True)
+    humans = list(get_human_split("train")) + list(get_human_split("test"))
+    t0 = time.perf_counter()
+    write_fake_tree(str(root), humans, size=ZJU_IMAGE, n_cams=ZJU_CAMS)
+    seconds = time.perf_counter() - t0
+    kinds = {}
+    for sub in ("Camera_B1", "mask/Camera_B1", "mask_cihp/Camera_B1"):
+        rows, _, _ = read_png_rows(str(root / "_shared" / sub / "000000.png"))
+        kinds[sub] = np.bincount(rows[:, 0], minlength=5).tolist()
+    print(f"fake ZJU-MoCap tree: {len(humans)} subjects, {ZJU_CAMS} cameras, {ZJU_IMAGE}² PNG "
+          f"images and grey masks (mask/, mask_cihp/), frames 0 and 30, written in "
+          f"{seconds:.1f} s; rows of filter types 0-4 in camera 1's files: {kinds}", flush=True)
+    if 0 in kinds["Camera_B1"][1:] or not all(sum(k[1:]) for k in kinds.values()):
+        raise SystemExit("the fake tree's images must use every filter type, its masks "
+                         "filters other than None")
+    return str(root)
+
+
+def loader_rates(root) -> None:
+    """The native library's build, then ZJU train samples/s inline and with
+    4 prefetcher threads (the same samples, bit-equal)."""
+    from keypointnerf_torch.data import ZJUDataset, native_loader
+
+    t0 = time.perf_counter()
+    built = native_loader.LIB_PATH.exists()
+    native_loader.load()
+    print(f"native library {native_loader.LIB_PATH} "
+          f"{'was there' if built else 'built from native/kpnerf_data.cc'} in "
+          f"{time.perf_counter() - t0:.2f} s with {native_loader.compiler()}, OpenMP "
+          f"{native_loader.links_openmp()}", flush=True)
+    ds = ZJUDataset(root, "train")
+    order = np.random.default_rng(125).permutation(len(ds))[:LOADER_SAMPLES]
+    t0 = time.perf_counter()
+    inline = [ds[int(i)] for i in order]
+    t_inline = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pooled = list(native_loader.ordered(ds.__getitem__, order, 4))
+    t_pool = time.perf_counter() - t0
+    same = all(a is not None and all(np.array_equal(a[k], b[k]) for k in a if k != "meta")
+               for a, b in zip(inline, pooled))
+    shape = inline[0]["src_images"].shape
+    print(f"ZJU loader, {len(ds)} train samples, {LOADER_SAMPLES} loaded (src_images {shape}): "
+          f"inline {LOADER_SAMPLES / t_inline:.2f} samples/s, 4 workers "
+          f"{LOADER_SAMPLES / t_pool:.2f} samples/s; the same samples bit for bit: {same}",
+          flush=True)
+    side = ZJU_IMAGE // 2
+    if not same or shape != (3, side, side, 3):
+        raise SystemExit(f"the ZJU loader's samples differ with workers or are not {side}²")
+
+
+def zju_trainer(root, workers, steps=8) -> dict:
+    """`python -m keypointnerf_torch.train --config configs/zju.json --set
+    data.dataset=zju data.data_root=<tree> data.num_workers=N` for `steps`
+    steps; the loop's s/step and the host's share (log windows at 4, 6,
+    8)."""
+    import shutil
+
+    from keypointnerf_torch import train as cli
+
+    from keypointnerf_torch.ops import multiview_dmap_onehot as k1
+
+    out = DATA_DIR / f"w{workers}"
+    shutil.rmtree(out, ignore_errors=True)
+    k1.launches = 0
+    t0 = time.perf_counter()
+    trainer = cli.main(zju_cli_args(root, out) + ["--max_steps", str(steps), "--set",
+                                                  "data.dataset=zju", f"data.data_root={root}",
+                                                  f"data.num_workers={workers}",
+                                                  "log_every_steps=2", "val_every_steps=1000",
+                                                  "ckpt_every_steps=1000"])
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(out / "zju" / "metrics.jsonl")]
+    train = {r["step"]: r for r in rows if "train/e_all" in r}
+    loop = [train[s]["train/step_time_s"] for s in (4, 6, 8)]
+    data = [train[s]["train/data_time_s"] for s in (4, 6, 8)]
+    finite = all(math.isfinite(v) for r in rows for v in r.values())
+    share = sum(data) / sum(loop)
+    launches = k1.launches
+    print(f"train CLI on the ZJU tree, data.num_workers={workers}: {wall:.1f} s wall for "
+          f"{steps} steps; loop {loop} s/step (mean {sum(loop) / 3:.4f}), host making samples "
+          f"{data} s/step = {share:.3f} of the loop; all metrics finite: {finite}; K1 "
+          f"launches {launches}", flush=True)
+    if trainer.state.step != steps or not finite or len(trainer.train_data) == 0:
+        raise SystemExit(f"the ZJU-fed trainer (num_workers={workers}) did not train "
+                         f"{steps} finite steps")
+    if launches != 2 * steps:
+        raise SystemExit(f"K1 must run twice a step of the ZJU-fed trainer: {launches}")
+    return dict(s_per_step=sum(loop) / 3, host_share=share, out=out, k1=launches)
+
+
+def zju_cli_args(root, out):
+    return ["--config", str(ZJU_CONFIG), "--allow_random_vgg", "--no_tensorboard",
+            "--out_dir", str(out), "--data_root", root]
+
+
+def data_phase(dev) -> int:
+    """The ZJU-MoCap data path on a fake tree at the dataset's geometry:
+    the native build and loader rates, the train CLI fed from the tree with
+    4 workers beside none (a few steps each), --run_val on the val split,
+    and render_dynamic for 2 orbit frames of the test split from the
+    trained checkpoint with configs/zju_fast.json (cull_overflow 0)."""
+    from keypointnerf_torch import render_dynamic
+    from keypointnerf_torch import train as cli
+
+    root = zju_tree()
+    loader_rates(root)
+    inline = zju_trainer(root, 0)
+    pooled = zju_trainer(root, 4)
+    print(f"the ZJU-fed trainer loop: {inline['s_per_step']:.4f} s/step inline (host share "
+          f"{inline['host_share']:.3f}), {pooled['s_per_step']:.4f} with 4 workers (host share "
+          f"{pooled['host_share']:.3f})", flush=True)
+    out = pooled["out"]
+    third = cli.main(zju_cli_args(root, out) + ["--run_val", "--set", "data.dataset=zju",
+                                                f"data.data_root={root}"])
+    yml = dict(line.split(": ") for line in
+               open(out / "zju" / f"test_v3_{third.state.step}.yml").read().splitlines())
+    scored = sorted(p.name for p in (out / "zju" / "images_v3").glob("*/pred/*.png"))
+    print(f"--run_val on the ZJU val split: {len(scored)} samples {scored}, PSNR {yml['psnr']} "
+          f"/ SSIM {yml['ssim']}", flush=True)
+    if len(scored) != 2 or not all(math.isfinite(float(yml[k])) for k in ("psnr", "ssim")):
+        raise SystemExit("--run_val on the ZJU tree did not score 2 samples finitely")
+    del third
+    t0 = time.perf_counter()
+    res = render_dynamic.main(["--config", str(FAST_CONFIG), "--data_root", root,
+                               "--model_ckpt", str(out / "zju" / "ckpts"),
+                               "--out_dir", str(DATA_DIR / "video"), "--max_samples", "2",
+                               "--auto_cull_budget", "2"])
+    from keypointnerf_torch.data.image_io import read_png
+
+    shapes = [read_png(p).shape for p in res["frames"]]
+    print(f"render_dynamic (configs/zju_fast.json, 2 test samples): {len(res['frames'])} orbit "
+          f"frames {[Path(p).name for p in res['frames']]} {shapes} in "
+          f"{time.perf_counter() - t0:.1f} s, worst cull_overflow {res['cull_overflow']}",
+          flush=True)
+    if len(res["frames"]) != 2 or res["cull_overflow"] != 0.0 or \
+            any(sh != (512, 512, 3) for sh in shapes):
+        raise SystemExit("render_dynamic did not write 2 exact 512² orbit frames")
+    return pooled["k1"]
+
+
+def nondeterministic_ops(dev) -> list:
+    """One zju step at full width under
+    torch.use_deterministic_algorithms(True, warn_only=True): the ops torch
+    knows to be nondeterministic, from its warnings. K1's float atomics
+    (onehot_dmap.cu's run ends) are a hand-written kernel outside torch's
+    check and are named beside them."""
+    import warnings
+
+    from keypointnerf_torch.training import TrainDraws, create_train_state, train_step_fn
+
+    cfg, model, vgg, recipe = zju_step_parts(dev)
+    state = create_train_state(model, recipe.optim, vgg)
+    vb = rig_sample(dev, 0)
+    draws = TrainDraws.sample(cfg, vb, torch.Generator(device=dev).manual_seed(0))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            err = train_step_fn(model, recipe.loss, state, vb, draws)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = {}
+    for w in caught:
+        msg = str(w.message)
+        if "determinis" in msg:
+            key = msg.split(" does not have a deterministic")[0].split(". ")[0][:160]
+            ops[key] = ops.get(key, 0) + 1
+    print(f"zju step under use_deterministic_algorithms(True, warn_only=True) (e_all "
+          f"{err['e_all'].item():.6f}): {len(ops)} kinds of nondeterministic op, "
+          f"{sum(ops.values())} warnings: {ops}; beside them, outside torch's check: K1 "
+          f"(onehot_dmap.cu) adds each cell run's sums with float atomics, twice a step",
+          flush=True)
+    return sorted(ops)
+
+
 PHASES = ("kernels", "render", "fast", "agreement", "train", "train_agreement", "trainer",
-          "model_rest", "parallel")
+          "model_rest", "parallel", "gate", "data")
 
 
 def main() -> int:
@@ -3245,6 +3759,7 @@ def main() -> int:
 
     entries, launches = {}, {}
     if "kernels" in todo:
+        t0 = time.perf_counter()
         phase("kernels against their plain versions")
         entries = {"onehot_bilinear": check_onehot_bilinear(dev)}
         phase("K1")
@@ -3258,8 +3773,10 @@ def main() -> int:
         phase("K4 / K5 on the wmma route")
         check_geo_mlp_wmma(dev)
         check_dot_f32(dev)
+        print(f"phase kernels {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "render" in todo:
+        t0 = time.perf_counter()
         phase("full-width strict render")
         k2_launches, ctx = render_full_width(dev)
         launches.update(k2_launches)
@@ -3277,8 +3794,10 @@ def main() -> int:
         launches["fused_geo_mlp"] = render_rel_z(dev)
         phase("strict render at widths the wgmma kernel refuses, use_pallas_geo_mlp (wmma K5)")
         render_wmma_widths(dev)
+        print(f"phase render {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "fast" in todo:
+        t0 = time.perf_counter()
         phase("full-width fast render (configs/zju_fast.json)")
         fast = render_fast(dev, strict)
         del strict
@@ -3287,8 +3806,10 @@ def main() -> int:
         phase("fast preset: run_eval on the synthetic dataset")
         eval_fast(fast)
         del fast
+        print(f"phase fast {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "agreement" in todo:
+        t0 = time.perf_counter()
         phase("small-input agreement")
         agreement_small(dev)
         agreement_small(dev, use_pallas_geo_mlp=True)
@@ -3297,9 +3818,11 @@ def main() -> int:
         agreement_small(dev, fused_feature_map=True, use_dma_gather=True,
                         use_pallas_composite=True, cull_empty_rays_ratio=1.0)
         agreement_fast(dev)
+        print(f"phase agreement {time.perf_counter() - t0:.1f} s", flush=True)
 
     bare_s_per_step = None
     if "train" in todo:
+        t0 = time.perf_counter()
         phase("full-width zju training steps")
         off = train_full_width(dev, capture_k1=True, capture_grads=True)
         launches["onehot_dmap"] = off["onehot_dmap"]
@@ -3323,6 +3846,8 @@ def main() -> int:
             del again
         print(f"first zju step's grad_norm over 4 runs of one program: {norms}; spread "
               f"{(max(norms) - min(norms)) / norms[0]:.3e} of the first", flush=True)
+        phase("the zju step's nondeterministic ops (use_deterministic_algorithms, warn only)")
+        nondeterministic_ops(dev)
         phase("full-width zju training steps with use_pallas_geo_mlp (K5)")
         on = train_full_width(dev, use_pallas_geo_mlp=True)
         compare_first_steps(off["first"], on["first"])
@@ -3359,17 +3884,22 @@ def main() -> int:
               f"({fused['peak_bytes'] / 2**30:.2f} GiB); {fused['device_ms']:.3f} ms of kernel "
               f"time; K1 {fused_k1['step_ms']:.4f} ms a step", flush=True)
         del fused
+        print(f"phase train {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "train_agreement" in todo:
+        t0 = time.perf_counter()
         phase("small-input training agreement")
         train_agreement_small(dev)
         train_agreement_small(dev, use_pallas_geo_mlp=True)
         train_agreement_small(dev, fused_feature_map=True)
         train_agreement_small(dev, remat=True)
+        print(f"phase train_agreement {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "trainer" in todo:
+        t0 = time.perf_counter()
         phase("the trainer CLI at full width (python -m keypointnerf_torch.train)")
         trainer_cli(bare_s_per_step)
+        print(f"phase trainer {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "model_rest" in todo:
         t0 = time.perf_counter()
@@ -3396,6 +3926,23 @@ def main() -> int:
         agreement_small(dev, 1.5, separate_cf=True, use_pallas_geo_mlp=True)
         train_agreement_small(dev, 1.5, pool_mode="attention_v1", separate_cf=True)
         print(f"phase model_rest {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if "gate" in todo:
+        t0 = time.perf_counter()
+        phase("the training-quality gate (python -m keypointnerf_torch.quality_gate), "
+              f"{GATE_STEPS} steps")
+        gate = gate_phase(dev)
+        if "onehot_dmap" in entries:
+            entries["onehot_dmap"]["gate_launches_per_step"] = gate["k1_per_step"]
+        print(f"phase gate {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if "data" in todo:
+        t0 = time.perf_counter()
+        phase("the ZJU-MoCap data path on a fake tree at the dataset's geometry")
+        zju_k1 = data_phase(dev)
+        if "onehot_dmap" in entries:
+            entries["onehot_dmap"]["zju_trainer_launches"] = zju_k1
+        print(f"phase data {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "parallel" in todo:
         t0 = time.perf_counter()

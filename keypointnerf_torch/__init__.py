@@ -4,7 +4,10 @@ NVIDIA H100.
 Layer map (each module sits where its JAX counterpart does):
 
   device.py   default-device resolution (CUDA unless the caller names one)
-  data/       numpy synthetic sphere rig (a copy, no JAX-package import)
+  data/       numpy synthetic sphere rig, the ZJU-MoCap loader and its
+              subject renamer, the native image core and prefetcher
+              (native/kpnerf_data.cc, built at first use), the port's PNG
+              reader / writer (copies, no JAX-package import)
   geometry/   cameras, rays, AABB, sampling, compositing (true f32)
   ops/        bilinear multi-view lookups; hand-written CUDA kernels
               (csrc/) built with nvcc at first use and bound with ctypes
@@ -12,7 +15,8 @@ Layer map (each module sits where its JAX counterpart does):
               head, VGG19 features, the KeypointNeRF assembly (eval and
               training forward) and the eval presets
   render/     chunked full-image render with the exact empty-ray cull,
-              several cameras of one subject, batches of subjects
+              several cameras of one subject, batches of subjects, orbit
+              videos (video.py)
   training/   explicit train-time draws, the loss stack, the optimizer
               step with optax's schedules, clipping and accumulation (one
               sample or a batch), and the Trainer loop (loop.py: data
@@ -27,13 +31,16 @@ Layer map (each module sits where its JAX counterpart does):
   train.py    the training CLI (python -m keypointnerf_torch.train)
   eval_zju.py re-scoring of saved PNG trees (python -m
               keypointnerf_torch.eval_zju)
+  render_dynamic.py  orbit frames of the test subjects from a checkpoint
+  quality_gate.py    the training-quality gate: the zju recipe trained on
+              the synthetic rig and scored (python -m
+              keypointnerf_torch.quality_gate; floors in quality_gate.json)
 
 The port renders with the `strict_preset` and `fast_preset` semantics
 (configs/zju_fast.json), scores renders, and trains the configs/zju.json
-recipe through its CLI on one device or several (one rank each), with
+recipe through its CLI on one device or several (one rank each), from
+the synthetic rig or a ZJU-MoCap tree (loader workers optional), with
 every model flag of the JAX package (the attention pools, `separate_cf`).
-What it does not implement yet (the ZJU-MoCap loader, loader workers)
-raises NotImplementedError naming its ROADMAP item.
 """
 
 __version__ = "0.1.0"

@@ -5,6 +5,7 @@ nothing falls back to the CPU on its own.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -21,3 +22,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "device='cpu' to run on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=256)
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """The tensor of `values` (a Python number or a tuple of them) as
+    `dtype` on `device`, made once a (values, dtype, device): a tensor made
+    from host values is copied to the card, and that copy waits for the
+    work queued before it. Callers must not write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)

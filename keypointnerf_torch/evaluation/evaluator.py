@@ -5,73 +5,20 @@ on the mask_at_box bounding-rect crop, and the pred / gt / input PNG trees
 under `{result_dir}/{human}/{pred,gt,input}` that `eval_saved_images`
 re-scores offline.
 
-The PNGs are written by `write_png` below (zlib + struct, 8-bit, no
-filter), which needs no image library; the pixels are the ones the JAX
-package's imageio writer stores. `read_png` reads the files `write_png`
-makes.
+The PNGs are written by `data/image_io.py`'s `write_png` (zlib + struct,
+8-bit, rows filtered as libpng does), which needs no image library; the
+pixels are the ones the JAX package's imageio writer stores.
+`eval_saved_images` reads them back with the same module's `read_png`.
 """
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 from typing import Dict, Optional
 
 import numpy as np
 
+from ..data.image_io import read_png, write_png
 from .metrics import bounding_rect, psnr, structural_similarity
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-def _chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an (H, W, 3) uint8 image as an 8-bit RGB PNG, every row with
-    filter type 0."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"write_png takes (H, W, 3) uint8 pixels, got {img.shape} {img.dtype}")
-    H, W, _ = img.shape
-    rows = np.concatenate([np.zeros((H, 1), np.uint8), img.reshape(H, W * 3)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)     # 8-bit, colour type 2: RGB
-    with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
-                + _chunk(b"IEND", b""))
-
-
-def read_png(path: str) -> np.ndarray:
-    """Read a PNG that `write_png` wrote: (H, W, 3) uint8. Other PNGs
-    (filtered rows, other colour types or bit depths, interlace) raise
-    ValueError: read those with an image library."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    W, H, depth, color, _, _, interlace = header
-    if (depth, color, interlace) != (8, 2, 0):
-        raise ValueError(f"{path}: not an 8-bit RGB PNG without interlace; read it with an "
-                         "image library")
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(H, 1 + W * 3)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: filtered rows (not written by write_png); read it with an "
-                         "image library")
-    return rows[:, 1:].reshape(H, W, 3)
 
 
 def _write_png(path: str, img01: np.ndarray) -> None:

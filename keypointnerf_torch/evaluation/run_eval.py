@@ -10,8 +10,6 @@ every rank renders its share of each image's rays
 """
 from __future__ import annotations
 
-import copy
-import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -83,9 +81,7 @@ def run_eval(
             print(f"auto_cull_budget: raising cull budget "
                   f"{model.cfg.cull_empty_rays_ratio} -> {worst_budget} "
                   f"(probed {probed} samples, worst hull {worst_hull:.3f})")
-            # a shallow copy shares the weights; only the config differs
-            model = copy.copy(model)
-            model.cfg = dataclasses.replace(model.cfg, cull_empty_rays_ratio=worst_budget)
+            model = model.with_config(cull_empty_rays_ratio=worst_budget)
             if sharded_render is not None:
                 sharded_render = make_sharded_render(model, group)
 

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import constant
+
 
 def ray_aabb_intersection(bounds, origins, dirs, boffset=(-0.01, 0.01), eps=1e-6):
     """Intersect rays with an AABB.
@@ -18,7 +20,7 @@ def ray_aabb_intersection(bounds, origins, dirs, boffset=(-0.01, 0.01), eps=1e-6
     (..., N, 3); dirs: (..., N, 3). Returns near, far (..., N, 1), 1.0
     where there is no hit, and the hit mask (..., N, 1) bool.
     """
-    off = torch.tensor(boffset, dtype=bounds.dtype, device=bounds.device)
+    off = constant(tuple(boffset), bounds.dtype, bounds.device)
     bounds = bounds + off[:, None]
     if origins.dim() < dirs.dim():
         origins = origins[..., None, :]

@@ -90,7 +90,9 @@ def camera_rays(pixels, K, R, t, znear, zfar):
     """
     ones = torch.ones_like(pixels[..., :1])
     pix_h = torch.cat([pixels, ones], dim=-1)  # (..., N, 3)
-    inv_K = torch.linalg.inv(K[..., :3, :3])
+    # inv_ex: inv's values without its singularity check, which reads a
+    # flag back from the device
+    inv_K = torch.linalg.inv_ex(K[..., :3, :3]).inverse
     dirs_cam = _mm(pix_h, inv_K.transpose(-1, -2))  # (..., N, 3)
     scale = torch.linalg.norm(dirs_cam, dim=-1, keepdim=True)
     dirs_world = _mm(dirs_cam, R)  # row-vector form of R^T @ d

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..device import constant
+
 
 def linspace01(n, dtype=torch.float32, device=None):
     """`jnp.linspace(0, 1, n)` as the JAX package's compiled program yields
@@ -15,7 +17,7 @@ def linspace01(n, dtype=torch.float32, device=None):
     the reciprocal rounded to `dtype`; the last entry is exactly 1."""
     if n == 1:
         return torch.zeros(1, dtype=dtype, device=device)
-    inv = torch.tensor(1.0 / (n - 1), dtype=dtype, device=device)
+    inv = constant(1.0 / (n - 1), dtype, device)
     head = torch.arange(n - 1, dtype=dtype, device=device) * inv
     return torch.cat([head, torch.ones(1, dtype=dtype, device=device)])
 

@@ -58,6 +58,7 @@ config field the port ignores.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import math
@@ -68,7 +69,7 @@ import torch
 import torch.nn as nn
 import torch.utils.checkpoint
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, constant, resolve_device
 from ..geometry.aabb import ray_aabb_intersection
 from ..geometry.cameras import (
     camera_center,
@@ -295,6 +296,14 @@ class KeypointNeRF(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.ibr_compress_gfeat.weight.device
+
+    def with_config(self, **fields) -> "KeypointNeRF":
+        """A shallow copy sharing this model's weights whose config has
+        `fields` replaced (render-time fields: the cull budget, znear /
+        zfar); the architecture's fields must stay."""
+        out = copy.copy(self)
+        out.cfg = dataclasses.replace(self.cfg, **fields)
+        return out
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> None:
@@ -729,7 +738,7 @@ class KeypointNeRF(nn.Module):
         y0 = torch.clamp(cy - c.patch_h // 2, 0, max(H - c.patch_h, 0))
         grid = pixel_grid(c.patch_h, c.patch_w, device=idx.device) + torch.stack([x0, y0])
         # the degenerate patch > image case: x in [0, W-1], y in [0, H-1]
-        hi = torch.tensor([W - 1, H - 1], device=idx.device)
+        hi = constant((W - 1, H - 1), torch.int64, idx.device)
         return torch.minimum(torch.clamp(grid, min=0), hi).to(torch.int32)
 
     def forward(self, vb: ViewBatch, train: bool = True, draws=None):

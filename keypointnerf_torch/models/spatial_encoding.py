@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from ..device import constant
+
 
 @dataclasses.dataclass(frozen=True)
 class SpatialEncodingConfig:
@@ -85,7 +87,7 @@ def spatial_encode(
     if t == "cxyz":
         return positional_encoding(pts_cam, L)
     if t == "wxyz":
-        center = torch.tensor(cfg.center, dtype=pts_world.dtype, device=pts_world.device)
+        center = constant(tuple(cfg.center), pts_world.dtype, pts_world.device)
         out = positional_encoding(s * (pts_world - center), L)
         return out.expand((V,) + out.shape)
     if t == "mxyz":

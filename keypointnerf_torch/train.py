@@ -84,9 +84,13 @@ def build_datasets(cfg):
         sc = SyntheticConfig(image_size=cfg.data.image_size)
         return SyntheticDataset(sc, length=64), SyntheticDataset(sc, length=cfg.data.max_len_val)
     if cfg.data.dataset == "zju":
-        raise NotImplementedError(
-            "the ZJU-MoCap loader is not ported yet: ROADMAP Queue 1 item 7 (periphery); "
-            "use --set data.dataset=synthetic")
+        from .data import ZJUDataset, ZJUTestDataset
+
+        train = ZJUDataset(cfg.data.data_root, "train", image_ratio=cfg.data.image_ratio,
+                           n_source_views=cfg.data.n_source_views)
+        val = ZJUTestDataset(cfg.data.data_root, "val", sample_frame=cfg.data.sample_frame,
+                             max_len=cfg.data.max_len_val, image_ratio=cfg.data.image_ratio)
+        return train, val
     raise ValueError(f"unknown dataset {cfg.data.dataset}")
 
 

@@ -1,4 +1,4 @@
-from .draws import QueryDraws, TrainDraws
+from .draws import QueryDraws, TrainDraws, patch_pool
 from .losses import LossConfig, compute_losses, pix_loss
 from .train import (
     OptimConfig,
@@ -19,6 +19,7 @@ from .train import (
 __all__ = [
     "QueryDraws",
     "TrainDraws",
+    "patch_pool",
     "LossConfig",
     "compute_losses",
     "pix_loss",

@@ -23,6 +23,15 @@ import dataclasses
 import torch
 
 
+def patch_pool(vb, device=None) -> torch.Tensor:
+    """The flat pixel indices a patch center is drawn from: the target's
+    pixels with mask > 0.5, or all pixels when there are none. Finding
+    them reads a count back from the device."""
+    flat = vb.tar_mask.reshape(-1).to(device or vb.tar_mask.device)
+    fg = torch.nonzero(flat > 0.5).reshape(-1)
+    return fg if fg.numel() else torch.arange(flat.numel(), device=flat.device)
+
+
 @dataclasses.dataclass
 class QueryDraws:
     """The draws of one `query_points` call in training."""
@@ -50,9 +59,11 @@ class TrainDraws:
                           self.fine.to(device))
 
     @classmethod
-    def sample(cls, cfg, vb, generator: torch.Generator) -> "TrainDraws":
+    def sample(cls, cfg, vb, generator: torch.Generator, pool=None) -> "TrainDraws":
         """Draw one forward's randomness for model config `cfg` and batch
-        `vb` with `generator`, on the generator's device (the batch's)."""
+        `vb` with `generator`, on the generator's device (the batch's).
+        `pool` is `patch_pool(vb)` when the caller keeps it (finding it
+        waits for the device); the draws are the same either way."""
         dev = generator.device
         V = vb.src_images.shape[0]
         R = cfg.patch_h * cfg.patch_w
@@ -60,11 +71,10 @@ class TrainDraws:
         def rand(*shape):
             return torch.rand(shape, generator=generator, device=dev)
 
-        flat = vb.tar_mask.reshape(-1).to(dev)
-        fg = torch.nonzero(flat > 0.5).reshape(-1)
-        pool = fg if fg.numel() else torch.arange(flat.numel(), device=dev)
+        pool = patch_pool(vb, dev) if pool is None else pool
         pick = torch.randint(pool.numel(), (), generator=generator, device=dev)
-        patch_index = pool[pick]
+        # index_select: indexing by a 0-dim tensor reads it back to the host
+        patch_index = pool.index_select(0, pick.reshape(1))[0]
 
         def query(n_points):
             keep = torch.cat([torch.ones(1, device=dev),

@@ -24,14 +24,19 @@ writes the config, metrics.jsonl and checkpoints, and every rank waits
 for each save; on resume every rank restores rank 0's newest step with
 its place in the epoch.
 
-Loader workers are a later slice and raise NotImplementedError naming
-their ROADMAP item.
+With `data.num_workers` N > 0 the samples of a rank's order are loaded
+by N threads of the native prefetcher (`data/native_loader.py`, the
+reference's DataLoader workers), a bounded window ahead of the step, and
+handed over in the order's sequence through a reorder buffer: the
+batches are the inline loader's, bit for bit. A sample whose load raised
+is raised again at its place. The native library is built at first use;
+a failed build raises.
 """
 from __future__ import annotations
 
 import os
 import time
-from typing import Iterable, List, Optional
+from typing import Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -70,10 +75,8 @@ class Trainer:
         the torch.distributed group of the data-parallel ranks (default:
         the default group once one is initialized, else none);
         `tensorboard` whether rank 0 also writes TensorBoard events."""
-        if cfg.data.num_workers > 0:
-            raise NotImplementedError(
-                "data.num_workers > 0 (loader workers) is not ported yet: ROADMAP Queue 1 "
-                "item 7 (the native prefetcher); set data.num_workers=0")
+        if cfg.data.num_workers < 0:
+            raise ValueError(f"data.num_workers must be >= 0, got {cfg.data.num_workers}")
         group = default_group() if group is None else group
         self.world = 1 if group is None else world_size(group)
         self.group = group if self.world > 1 else None
@@ -149,6 +152,16 @@ class Trainer:
             order = np.concatenate([order, order[:pad]])
         return order.reshape(-1, B)[:, self.slots.start:self.slots.stop].reshape(-1)
 
+    def _sample_stream(self, order) -> Iterator:
+        """The samples of `order`, in its sequence: loaded inline, or by
+        `data.num_workers` prefetcher threads."""
+        n_workers = self.cfg.data.num_workers
+        if n_workers == 0:
+            return (self.train_data[int(i)] for i in order)
+        from ..data import native_loader
+
+        return native_loader.ordered(self.train_data.__getitem__, order, n_workers)
+
     def _batch_iterator(self, epoch: int, start: int = 0) -> Iterable[List[ViewBatch]]:
         """This rank's batches of one epoch from entry `start` of its order
         on. One process: the reference's None-dropping collate (unloadable
@@ -162,9 +175,8 @@ class Trainer:
         self._epoch_dropped = self._epoch_substituted = self._epoch_loaded = 0
         self._epoch_pos = start
         batch = []
-        for idx in order[start:]:
-            t0 = time.perf_counter()
-            sample = self.train_data[int(idx)]
+        t0 = time.perf_counter()      # host time making samples: waits on the loader too
+        for sample in self._sample_stream(order[start:]):
             self._epoch_loaded += 1
             self._epoch_pos += 1
             if sample is None and self.world > 1:
@@ -181,6 +193,7 @@ class Trainer:
             if len(batch) == self.local_batch:
                 yield batch
                 batch = []
+            t0 = time.perf_counter()
         self._warn_bad_samples(epoch)
 
     def _warn_bad_samples(self, epoch: int) -> None:

@@ -98,11 +98,10 @@ def global_norm(tensors) -> torch.Tensor:
 
 def clip_by_global_norm(grads, max_norm: float):
     """optax.clip_by_global_norm: g unchanged when norm < max_norm, else
-    (g / norm) * max_norm."""
+    (g / norm) * max_norm (chosen on the device: no host sync)."""
     norm = global_norm(grads)
-    if bool(norm < max_norm):
-        return list(grads)
-    return [(g / norm) * max_norm for g in grads]
+    keep = norm < max_norm
+    return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
 
 @dataclasses.dataclass

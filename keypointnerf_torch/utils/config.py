@@ -104,6 +104,7 @@ def load_config(path: Optional[str] = None,
                 d = yaml.safe_load(f)
             else:
                 d = json.load(f)
+    d.pop("__git_head__", None)       # what save_config adds: a run's config loads back
     for k, v in (overrides or {}).items():
         parts = k.split(".")
         cur = d

@@ -107,8 +107,9 @@ def test_metrics_match_jax():
 
 def test_png_writer_round_trip(tmp_path):
     """write_png / read_png round-trip RGB; imageio reads the same pixels;
-    PNGs write_png does not make (imageio's filtered rows, grey) are
-    refused by read_png, other arrays by write_png."""
+    imageio's own PNGs (its filtered rows, grey) read as imageio reads them (data/image_io.py's reader; tests/test_torch_image_io.py
+    holds every filter and colour type), a 16-bit PNG is refused by
+    read_png, arrays that are not uint8 with 1-4 channels by write_png."""
     import imageio.v2 as imageio
 
     img = np.random.default_rng(2).integers(0, 256, (9, 13, 3), dtype=np.uint8)
@@ -119,10 +120,13 @@ def test_png_writer_round_trip(tmp_path):
     for name, foreign in (("filtered", np.tile(np.arange(64, dtype=np.uint8)[:, None], (8, 1, 3))),
                           ("grey", img[..., 0])):
         imageio.imwrite(str(tmp_path / f"{name}.png"), foreign)
-        with pytest.raises(ValueError, match="image library"):
-            read_png(str(tmp_path / f"{name}.png"))
-    with pytest.raises(ValueError, match="uint8"):
-        write_png(path, img[..., 0])
+        np.testing.assert_array_equal(read_png(str(tmp_path / f"{name}.png")), foreign)
+    imageio.imwrite(str(tmp_path / "deep.png"), img[..., 0].astype(np.uint16) * 257)
+    with pytest.raises(ValueError, match="8-bit"):
+        read_png(str(tmp_path / "deep.png"))
+    for other in (img.astype(np.float32), np.zeros((4, 4, 5), np.uint8)):
+        with pytest.raises(ValueError, match="uint8"):
+            write_png(path, other)
 
 
 def test_evaluator_matches_jax(tmp_path):

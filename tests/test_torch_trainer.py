@@ -16,7 +16,7 @@ narrower texture encoder:
   * the CLIs (`keypointnerf_torch.train`, `keypointnerf_torch.eval_zju`),
     run in-process: --fast_dev_run, --run_val and the re-scoring of its
     PNG tree, each refusal (the multi-process flags that do not fit
-    together, the data paths naming their ROADMAP item), the lambda_vgg
+    together, a missing ZJU-MoCap root, negative loader workers), the lambda_vgg
     gate;
   * StepTimer, check_finite, trace and the torchvision VGG19 loader.
 
@@ -355,14 +355,17 @@ def test_cli_fast_dev_run_run_val_and_rescore(tmp_path):
     (["--process_id", "1"], ValueError, "--process_id needs --num_processes"),
     (["--num_processes", "2", "--process_id", "1"], ValueError,
      "--num_processes 2 needs --coordinator"),
-    (["--set", *TOY_SET, "data.dataset=zju"], NotImplementedError, "ROADMAP Queue 1 item 7"),
-    (["--set", *TOY_SET, "data.num_workers=2"], NotImplementedError, "ROADMAP Queue 1 item 7"),
+    (["--data_root", "/nonexistent/zju", "--set", *TOY_SET, "data.dataset=zju"],
+     FileNotFoundError, "annots.npy"),
+    (["--set", *TOY_SET, "data.num_workers=-1"], ValueError, "num_workers must be >= 0"),
 ])
 def test_cli_refusals_name_their_item(tmp_path, argv, exc, match):
-    """What the CLI still refuses: more NCCL ranks than cards (both numbers
+    """What the CLI refuses: more NCCL ranks than cards (both numbers
     named), --process_id without --num_processes, a group of P > 1 without
-    a coordinator (each before any process starts), and the item-7 data
-    paths, naming their ROADMAP item."""
+    a coordinator (each before any process starts), a ZJU-MoCap root
+    without its annots.npy and a negative data.num_workers (the data paths
+    themselves are held by tests/test_torch_zju_data.py and
+    tests/test_torch_loader_workers.py)."""
     base = ["--device", "cpu", "--out_dir", str(tmp_path), "--allow_random_vgg"]
     with pytest.raises(exc, match=match):
         run_cli(*base, *argv)
