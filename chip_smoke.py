@@ -152,10 +152,33 @@ Phases (any failure exits nonzero):
      K1 twice a step; s/step and the host's share), --run_val on the val
      split, and render_dynamic for 2 orbit frames with configs/zju_fast.json
      (cull_overflow 0);
- 14. prints the kernels line, the card line and, last, the result line.
+ 14. export: the serving export (keypointnerf_torch/export.py, the kernels
+     as registered ops): the 512² strict camera with use_pallas_geo_mlp
+     exported at chunk 2048 into build/chip_smoke_export/, loaded and run
+     in a fresh process that imports only load_render (frames and overflow
+     bit-equal to the eager render, overflow 0, K2 and K5 48 launches each,
+     a wrong input shape raises); an artifact with a cull budget of 0.01 at
+     256² (overflow > 0, equal to the eager render's); a multi-camera
+     artifact (F = 2, 256²) equal to its cameras' renders; a 128² artifact
+     with the fused map + K3, rel_z + K4 and K6 equal to its eager render,
+     each kernel's launches counted; the eager render before and after the
+     exports bit-equal; export seconds, artifact bytes, load seconds and the
+     loaded program's rays/s beside eager's;
+ 15. reference_ckpt: a fake reference Lightning checkpoint of the seeded
+     full-width model (model.*, vgg_loss.*, Lightning's keys) imported by
+     utils/import_reference.py into a fresh model: its 512² strict render
+     bit-equal to the source model's;
+ 16. icon: the port's ICON CLI (`python -m keypointnerf_torch.train_icon`,
+     its main()) at ICON's full widths on 512² blob scenes (200 steps, 8
+     scenes, 2 eval scenes, 128³ grids): finite Chamfer / P2S, the OBJ
+     files and icon_metrics.json; s/step, grid points/s, meshing seconds;
+     then a toy f32 ICON step card vs CPU;
+ 17. prints the kernels line, the card line and, last, the result line.
 
 The train phase also lists the ops torch reports as nondeterministic in
-one zju step (use_deterministic_algorithms, warn only); the trainer phase
+one zju step (use_deterministic_algorithms, warn only) and fails if there
+is one (the one it reported before, the bicubic upsample's backward, is two products
+since the upsample took JAX's formula); the trainer phase
 also runs the first call with 4 loader workers; model_rest also times
 K5's 3-output module path and renders the 2-output camera with
 reuse_coarse_eval=False (the 128-depth union), a separate_cf model
@@ -268,6 +291,11 @@ def time_lookup(call, kernel_name, library_call) -> dict:
             "library_call_ms": cuda_ms(library_call, iters=100)}
 
 
+# K2's call by CUDA events as a ctypes call, before the kernels were
+# registered ops, at uniform and ray-coherent points (PERF.md §6)
+K2_CTYPES_CALL_MS = {"uniform": 0.02480, "render": 0.01860}
+
+
 def check_onehot_bilinear(dev) -> dict:
     """K2 against its plain version; returns its kernels-line entry, timed
     at uniform points (as in earlier runs) with the times at ray-coherent
@@ -321,8 +349,9 @@ def check_onehot_bilinear(dev) -> dict:
                       f"{t['ms']:.5f} ms of device time ({t['call_ms']:.5f} ms a call by CUDA "
                       f"events), grid_sample {t['library_ms']:.5f} ms of device time "
                       f"({t['library_call_ms']:.5f} ms a call by CUDA events), bound "
-                      f"{max(t_bytes, t_ops):.5f} ms ({n_bytes} bytes, {n_ops} flops)",
-                      flush=True)
+                      f"{max(t_bytes, t_ops):.5f} ms ({n_bytes} bytes, {n_ops} flops); a call "
+                      f"through the registered op {t['call_ms']:.5f} ms against the ctypes "
+                      f"call {K2_CTYPES_CALL_MS[what]:.5f} ms", flush=True)
                 if what == "uniform":
                     entry = {
                         "name": "onehot_bilinear", "route": "cuda",
@@ -583,7 +612,9 @@ def check_composite_importance(dev) -> dict:
                   f"{n_bytes} bytes = {t_bytes:.5f} ms, {n_ops} flops = {t_ops:.5f} ms); an "
                   f"empty kernel, the floor under both: {floor['ms']:.5f} ms of device time, "
                   f"{floor['call_ms']:.5f} ms a call; no single PyTorch call computes this "
-                  f"function (library_ms null)", flush=True)
+                  f"function (library_ms null); a call through the registered op "
+                  f"{call_ms:.5f} ms against the ctypes call's 0.02398 ms (PERF.md §6)",
+                  flush=True)
     return entry
 
 
@@ -3721,8 +3752,407 @@ def nondeterministic_ops(dev) -> list:
     return sorted(ops)
 
 
+# ------------------------------------------------ export, checkpoints, ICON
+EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"
+EXPORT_SIZES = {"main": RIG, "under": 256, "multicam": 256, "flags": 64}
+EXPORT_CHUNK = 2048
+# The consumer of the full-width artifact, in a fresh process: it imports
+# load_render (and through it the op registrations) and nothing of the
+# model. It waits for the artifact, loads it, waits for the go file (the
+# export phase, so that its run shares the card with nothing), runs it
+# once (kernel libraries loaded), then counts the kernels' launches and
+# times a second run; tries a wrong input shape; writes the frames, the
+# overflow and one JSON line of what it saw.
+EXPORT_CONSUMER = r"""
+import json, os, sys, time
+d, wait = sys.argv[1], float(sys.argv[2])
+
+def await_file(name):
+    t0 = time.perf_counter()
+    while not os.path.exists(f"{d}/{name}"):
+        if time.perf_counter() - t0 > wait:
+            sys.exit(f"no {name} after {wait} s")
+        time.sleep(0.2)
+
+import torch
+from keypointnerf_torch.export import load_render
+from keypointnerf_torch import ops
+await_file("main.done")
+t0 = time.perf_counter()
+serve = load_render(open(f"{d}/main.pt2", "rb").read())
+load_s = time.perf_counter() - t0
+params = torch.load(f"{d}/main.params.pt")
+args = torch.load(f"{d}/main.args.pt")
+await_file("go")
+sync = torch.cuda.synchronize if args[0].is_cuda else (lambda: None)
+serve(params, *args)
+sync()
+wrappers = {"onehot_bilinear": ops.multiview_onehot_bilinear_sample,
+            "fused_geo_mlp": ops.geo_mlp_apply, "sp_fused_geo_mlp": ops.sp_geo_mlp_apply,
+            "dma_gather": ops.multiview_bilinear_sample_dma,
+            "composite_importance": ops.fused_composite_importance}
+for w in wrappers.values():
+    w.launches = 0
+t0 = time.perf_counter()
+rgb, overflow = serve(params, *args)
+sync()
+run_s = time.perf_counter() - t0
+torch.save({"rgb": rgb.cpu(), "overflow": overflow.cpu()}, f"{d}/main.out.pt")
+launches = {k: w.launches for k, w in wrappers.items()}
+try:
+    serve(params, args[0][:, :-1], *args[1:])
+    raised = False
+except Exception:
+    raised = True
+print(json.dumps({"load_s": load_s, "run_s": run_s, "launches": launches, "raised": raised,
+                  "models": sorted(m for m in sys.modules if m.startswith("keypointnerf_torch.models")),
+                  "jax": "jax" in sys.modules}), flush=True)
+"""
+
+
+def export_args(vb, Ks=None, Rs=None, ts=None):
+    """The exported signature's flat tensors of a ViewBatch (the camera
+    stacks of a multi-camera artifact when given)."""
+    cams = (vb.tar_K, vb.tar_R, vb.tar_t) if Ks is None else (Ks, Rs, ts)
+    return (vb.src_images, vb.src_masks, vb.src_K, vb.src_R, vb.src_t, vb.kpt3d, vb.bounds,
+            *cams)
+
+
+def export_cameras(dev, vb):
+    """The smaller artifacts' cameras: the strict camera at 256² (its
+    intrinsics scaled to the frame) and the two-camera stack of the
+    multi-camera artifact (orbit angles 0 and 0.9)."""
+    half = EXPORT_SIZES["under"]
+    K_half = vb.tar_K * torch.tensor([[half / RIG], [half / RIG], [1.0]], device=dev)
+    cams = [orbit_camera(0.0), orbit_camera(0.9)]
+    Rs = torch.as_tensor(np.stack([c[0] for c in cams]), dtype=torch.float32, device=dev)
+    ts = torch.as_tensor(np.stack([c[1] for c in cams]), dtype=torch.float32, device=dev)
+    return dataclasses.replace(vb, tar_K=K_half), (torch.stack([K_half, K_half]), Rs, ts)
+
+
+def export_artifacts(dev) -> None:
+    """The export phase's artifacts of the 512² strict camera's model with
+    use_pallas_geo_mlp, written under EXPORT_DIR with their inputs and
+    export seconds: the 512² camera ("main", its `main.done` written after
+    it), a 256² camera with a cull budget of 0.01 ("under") and the F = 2
+    256² multi-camera artifact ("multicam"); `exports.json` last. Run in a
+    process of its own while the earlier phases run (`start_exports`): an
+    export is host work in one thread, minutes at full width."""
+    from keypointnerf_torch.export import export_render
+
+    cfg, model, vb = strict_camera(dev, use_pallas_geo_mlp=True)
+    params = model.state_dict()
+    vb_half, (Ks, Rs, ts) = export_cameras(dev, vb)
+    torch.save(params, EXPORT_DIR / "main.params.pt")
+    timings = {}
+    for name, m, args, kw in (
+            ("main", model, export_args(vb), {}),
+            ("under", model.with_config(cull_empty_rays_ratio=0.01), export_args(vb_half), {}),
+            ("multicam", model, export_args(vb, Ks, Rs, ts), {"multicam": True})):
+        size = EXPORT_SIZES[name]
+        t0 = time.perf_counter()
+        blob = export_render(m, params, args, height=size, width=size, chunk=EXPORT_CHUNK,
+                             device=dev, **kw)
+        timings[name] = {"export_s": time.perf_counter() - t0, "bytes": len(blob)}
+        (EXPORT_DIR / f"{name}.pt2").write_bytes(blob)
+        torch.save(args, EXPORT_DIR / f"{name}.args.pt")
+        if name == "main":
+            (EXPORT_DIR / "main.done").write_text("")
+        print(f"exported {name}: {timings[name]}", flush=True)
+    (EXPORT_DIR / "exports.json").write_text(json.dumps(timings))
+
+
+EXPORT_PRODUCER = "import sys, torch, chip_smoke; chip_smoke.export_artifacts(torch.device(sys.argv[1]))"
+
+
+def start_exports(dev) -> list:
+    """Start the export phase's background processes right after the
+    build: one exporting its artifacts (`export_artifacts`) and the fresh
+    consumer of the full-width one (EXPORT_CONSUMER), which loads it as
+    soon as it is written and waits for the export phase to run it. They
+    share the host's cores with the phases before it, and its card only
+    for building the model. Returns the processes (stopped at exit)."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    root = Path(__file__).resolve().parent
+    procs = []
+    for name, cmd in (("producer", [EXPORT_PRODUCER, str(dev)]),
+                      ("consumer", [EXPORT_CONSUMER, str(EXPORT_DIR), "1800"])):
+        out = open(EXPORT_DIR / f"{name}.log", "w")
+        procs.append(subprocess.Popen([sys.executable, "-c", *cmd], stdout=out,
+                                      stderr=subprocess.STDOUT, cwd=root))
+        out.close()
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
+
+
+def waited(proc, name, timeout=1200) -> str:
+    """Wait for a background process of the export phase; its log, or a
+    failure naming it."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = "killed at its timeout"
+    log = (EXPORT_DIR / f"{name}.log").read_text()
+    if rc != 0:
+        raise SystemExit(f"the export phase's {name} failed ({rc}):\n{log[-4000:]}")
+    return log
+
+
+def export_phase(dev, procs) -> dict:
+    """The serving export at full width (the artifacts from the background
+    processes of `start_exports`): the 512² strict camera with
+    use_pallas_geo_mlp exported at chunk 2048, loaded and run in a fresh
+    process (bit-equal to the eager render, overflow 0, K2 and K5 48
+    launches each), an under-budgeted artifact whose overflow is > 0, a
+    multi-camera artifact (F = 2, 256²) equal to its cameras' renders; and,
+    exported in this process between two eager renders that must be
+    bit-equal, a 64² artifact with K3, K4 and K6 (fused map, rel_z, the
+    fused composite) equal to its eager render. Returns each kernel's
+    launches in the artifacts and the timings."""
+    from keypointnerf_torch.export import export_render, load_render
+    from keypointnerf_torch.render import render_image
+
+    producer, consumer = procs
+    size = EXPORT_SIZES["main"]
+    cfg, model, vb = strict_camera(dev, use_pallas_geo_mlp=True)
+    params = model.state_dict()
+    render = lambda m, v, s: render_image(m, v, height=s, width=s,  # noqa: E731
+                                          chunk=EXPORT_CHUNK)
+    render(model, vb, size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = render(model, vb, size)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    waited(producer, "producer")
+    timings = json.loads((EXPORT_DIR / "exports.json").read_text())
+    saved = torch.load(EXPORT_DIR / "main.params.pt")
+    if not all(torch.equal(saved[k], v) for k, v in params.items()):
+        raise SystemExit("the exported model's weights are not this phase's")
+    print(f"waited {time.perf_counter() - t0:.1f} s for the background exports: "
+          f"{timings}", flush=True)
+    (EXPORT_DIR / "go").write_text("")
+    log = waited(consumer, "consumer", timeout=600)
+    res = json.loads(log.strip().splitlines()[-1])
+    got = torch.load(EXPORT_DIR / "main.out.pt")
+    equal = torch.equal(got["rgb"], eager["rgb_fine"].cpu())
+    overflow = float(got["overflow"])
+    print(f"512² strict camera with use_pallas_geo_mlp (chunk {EXPORT_CHUNK}): export "
+          f"{timings['main']['export_s']:.1f} s, {timings['main']['bytes']} bytes; fresh "
+          f"process: load {res['load_s']:.1f} s, run {res['run_s']:.4f} s = "
+          f"{size * size / res['run_s']:.1f} rays/s (eager {eager_s:.4f} s = "
+          f"{size * size / eager_s:.1f} rays/s); frames "
+          f"{'bit-equal to' if equal else 'DIFFER from'} the eager render; overflow "
+          f"{overflow}; launches {res['launches']}; wrong shape raised {res['raised']}; "
+          f"model modules imported {res['models']}, jax {res['jax']}", flush=True)
+    expected = strict_query_launches(size * size)
+    k = res["launches"]
+    if not (equal and overflow == 0.0 and res["raised"] and not res["models"]
+            and not res["jax"] and k["onehot_bilinear"] == expected
+            and k["sp_fused_geo_mlp"] == expected
+            and k["fused_geo_mlp"] == k["dma_gather"] == k["composite_importance"] == 0):
+        raise SystemExit("the loaded artifact does not reproduce the eager render")
+    artifact_launches = {"onehot_bilinear": expected, "sp_fused_geo_mlp": expected}
+
+    wrappers = kernel_wrappers()
+    half = EXPORT_SIZES["under"]
+    vb_half, (Ks, Rs, ts) = export_cameras(dev, vb)
+    tiny = model.with_config(cull_empty_rays_ratio=0.01)
+    t0 = time.perf_counter()
+    serve = load_render((EXPORT_DIR / "under.pt2").read_bytes())
+    load_s = time.perf_counter() - t0
+    _, ov = serve(params, *export_args(vb_half))
+    eager_ov = float(render(tiny, vb_half, half)["cull_overflow"].max())
+    print(f"under-budgeted artifact (256², cull 0.01): overflow {float(ov)} (eager "
+          f"{eager_ov}); export {timings['under']['export_s']:.1f} s, "
+          f"{timings['under']['bytes']} bytes, load {load_s:.1f} s", flush=True)
+    if not (float(ov) > 0.0 and float(ov) == eager_ov):
+        raise SystemExit("the under-budgeted artifact does not report its overflow")
+
+    t0 = time.perf_counter()
+    serve = load_render((EXPORT_DIR / "multicam.pt2").read_bytes())
+    load_s = time.perf_counter() - t0
+    for w in wrappers.values():
+        w.launches = 0
+    frames, ov = serve(params, *export_args(vb, Ks, Rs, ts))
+    torch.cuda.synchronize()
+    mc_launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    singles = [render(model, dataclasses.replace(vb_half, tar_R=Rs[f], tar_t=ts[f]),
+                      half)["rgb_fine"] for f in range(2)]
+    equal = all(torch.equal(frames[f], singles[f]) for f in range(2))
+    print(f"multi-camera artifact (F = 2, 256²): frames {'bit-equal to' if equal else 'DIFFER from'} "
+          f"the single-camera renders, worst overflow {float(ov)}; launches {mc_launches}; "
+          f"export {timings['multicam']['export_s']:.1f} s, {timings['multicam']['bytes']} "
+          f"bytes, load {load_s:.1f} s", flush=True)
+    if not (equal and float(ov) == 0.0 and frames.shape == (2, half, half, 3)
+            and not torch.equal(frames[0], frames[1])):
+        raise SystemExit("the multi-camera artifact disagrees with the single-camera renders")
+
+    # K3, K4 and K6 in an artifact: a 64² camera of the fused map with K3,
+    # rel_z with use_pallas_geo_mlp (K4) and the fused composite (K6; the
+    # cull off, as K6 requires), exported here between two eager renders
+    small = EXPORT_SIZES["flags"]
+    vb_small = dataclasses.replace(
+        vb, tar_K=vb.tar_K * torch.tensor([[small / RIG], [small / RIG], [1.0]], device=dev))
+    _, model3, _ = strict_camera(dev, use_pallas_geo_mlp=True, sp_type="rel_z",
+                                 fused_feature_map=True, use_dma_gather=True,
+                                 use_pallas_composite=True, cull_empty_rays_ratio=1.0)
+    params3 = model3.state_dict()
+    before = render(model3, vb_small, small)
+    t0 = time.perf_counter()
+    blob = export_render(model3, params3, export_args(vb_small), height=small, width=small,
+                         chunk=EXPORT_CHUNK, device=dev)
+    export_s = time.perf_counter() - t0
+    after = render(model3, vb_small, small)
+    unchanged = all(type(after[k]) is torch.Tensor and torch.equal(before[k], after[k])
+                    for k in before)
+    serve = load_render(blob)
+    serve(params3, *export_args(vb_small))
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    rgb, _ = serve(params3, *export_args(vb_small))
+    torch.cuda.synchronize()
+    flag_launches = {k: w.launches for k, w in wrappers.items() if w.launches}
+    equal = torch.equal(rgb, before["rgb_fine"])
+    n_chunks = small * small // EXPORT_CHUNK
+    print(f"{small}² artifact with the fused map + K3, rel_z + K4 and K6 (exported here: "
+          f"{export_s:.1f} s, {len(blob)} bytes): frames {'bit-equal to' if equal else 'DIFFER from'} "
+          f"the eager render; launches {flag_launches} ({n_chunks} chunks); the eager render "
+          f"after the export {'real tensors, bit-equal to before' if unchanged else 'CHANGED'}",
+          flush=True)
+    if not unchanged:
+        raise SystemExit("an export changed the eager render (a trace's tensor was cached)")
+    if not (equal and flag_launches == {"dma_gather": 2 * n_chunks,
+                                        "fused_geo_mlp": 2 * n_chunks,
+                                        "composite_importance": n_chunks}):
+        raise SystemExit("the K3 / K4 / K6 artifact disagrees with its eager render")
+    artifact_launches.update(flag_launches)
+    return dict(launches=artifact_launches, eager_s=eager_s, load_s=res["load_s"],
+                run_s=res["run_s"])
+
+
+REFERENCE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_reference"
+
+
+def reference_ckpt_phase(dev) -> None:
+    """A fake reference Lightning checkpoint of the seeded full-width model
+    (its tensors under `model.`, random VGG19 `vgg_loss.*` tensors,
+    Lightning's other keys), imported by utils/import_reference.py into a
+    fresh model on the card: the 512² strict render bit-equal to the source
+    model's."""
+    from keypointnerf_torch.models import KeypointNeRF, VGG19Features
+    from keypointnerf_torch.render import render_image
+    from keypointnerf_torch.utils import load_reference_checkpoint
+
+    cfg, model, vb = strict_camera(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    vgg = VGG19Features(device="cpu").state_dict()
+    sd = {f"model.{k}": v.cpu() for k, v in model.state_dict().items()}
+    sd.update({f"model.vgg_loss.{k}": v for k, v in vgg.items()})
+    REFERENCE_DIR.mkdir(parents=True, exist_ok=True)
+    path = REFERENCE_DIR / "last.ckpt"
+    torch.save({"state_dict": sd, "epoch": 11, "global_step": 123456,
+                "pytorch-lightning_version": "1.5.10", "optimizer_states": [{"state": {}}],
+                "lr_schedulers": [], "callbacks": {}, "hyper_parameters": {"lr": 5e-4}}, path)
+    t0 = time.perf_counter()
+    fresh = load_reference_checkpoint(str(path), KeypointNeRF(cfg, device=dev, seed=7))
+    load_s = time.perf_counter() - t0
+    a = render_image(model, vb, height=RIG, width=RIG, chunk=2048)
+    b = render_image(fresh, vb, height=RIG, width=RIG, chunk=2048)
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    print(f"reference checkpoint: {n_params} parameters under model., {len(vgg)} vgg_loss "
+          f"tensors, {path.stat().st_size} bytes; imported in {load_s:.2f} s; {RIG}² strict "
+          f"render {'bit-equal to' if equal else 'DIFFERS from'} the source model's", flush=True)
+    if n_params != 28_354_417 or not equal:
+        raise SystemExit("the imported reference checkpoint does not render as its source")
+
+
+ICON_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_icon"
+ICON_ARGS = ["--image_size", "512", "--steps", "200", "--n_scenes", "8", "--eval_scenes", "2",
+             "--resolution", "128"]
+
+
+def icon_phase(dev) -> None:
+    """The port's ICON CLI (`python -m keypointnerf_torch.train_icon`, its
+    main()) at ICON's full widths (the default KeypointICONConfig,
+    geo_n_downsample 4 above 64²) on 512² blob scenes with 128³ grids, then
+    a toy f32 ICON step card vs CPU."""
+    import shutil
+
+    from keypointnerf_torch import train_icon
+
+    shutil.rmtree(ICON_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = train_icon.main(["--out_dir", str(ICON_DIR), *ICON_ARGS])
+    metrics = json.loads((ICON_DIR / "icon_metrics.json").read_text())
+    objs = sorted(p.name for p in ICON_DIR.glob("eval_*.obj"))
+    finite = all(np.isfinite(s[k]) for s in metrics["scenes"] for k in ("chamfer", "p2s"))
+    print(f"ICON CLI ({' '.join(ICON_ARGS)}): {time.perf_counter() - t0:.1f} s; "
+          f"{res['s_per_step']:.4f} s/step, {res['grid_points_per_s']:.1f} grid points/s, "
+          f"meshing {res['mesh_s_per_scene']:.2f} s a scene; Chamfer {metrics['mean']['chamfer']:.4f}, "
+          f"P2S {metrics['mean']['p2s']:.4f} (scene units), voxel {metrics['mean']['voxel']:.4f}; "
+          f"vertices {[s['n_verts'] for s in metrics['scenes']]}; {objs}", flush=True)
+    if not finite or objs != ["eval_0.obj", "eval_1.obj"]:
+        raise SystemExit("the ICON CLI did not reconstruct finite surfaces")
+    icon_agreement_small(dev)
+
+
+def icon_agreement_small(dev) -> None:
+    """One toy f32 ICON step (BCE + Adam) on the card against the same step
+    on the CPU: the loss, every gradient and the updated parameters, at
+    train_agreement_small's bounds."""
+    from keypointnerf_torch.models.keypoint_icon import (
+        KeypointICON, KeypointICONConfig, make_icon_train_step)
+    from keypointnerf_torch.train_icon import make_blob_scene, sample_training_points
+
+    cfg = KeypointICONConfig(geo_n_downsample=2, mlp_hidden=(128, 128, 128))
+    sc = make_blob_scene(3, size=32)
+    pts, labels = sample_training_points(sc, rs=np.random.default_rng(0))
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        model = KeypointICON(cfg, device=d, seed=0)
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=d)  # noqa: E731
+        grads = {}
+        for name, p in model.named_parameters():
+            p.register_hook(lambda g, name=name: grads.__setitem__(name, g.detach().cpu()))
+        _, step = make_icon_train_step(model, 1e-3)
+        loss = step(t(sc["image"]), t(pts), t(labels), t(sc["K"]), t(sc["R"]), t(sc["t"]),
+                    t(sc["kpt3d"]))
+        res[d.type] = dict(loss=float(loss), grads=grads,
+                           params={k: p.detach().cpu() for k, p in model.named_parameters()})
+    c, g = res["cpu"], res["cuda"]
+    loss_err = abs(g["loss"] - c["loss"]) / abs(c["loss"])
+    top = max(x.abs().max().item() for x in c["grads"].values())
+    grad_err = noise = param_err = small = 0.0
+    for k, b in c["grads"].items():
+        a, scale = g["grads"][k], b.abs().max().item()
+        if scale < 1e-6 * top:
+            noise = max(noise, a.abs().max().item() / top)
+        else:
+            grad_err = max(grad_err, (a - b).abs().max().item() / scale)
+        big = b.abs() >= 1e-6
+        diff = (g["params"][k] - c["params"][k]).abs()
+        param_err = max(param_err, diff[big].max().item() if big.any() else 0.0)
+        small = max(small, diff[~big].max().item() if (~big).any() else 0.0)
+    print(f"toy f32 ICON step, card vs CPU: loss {loss_err:.3e} relative (bound 1e-4); "
+          f"gradients {grad_err:.3e} of each leaf's max (bound 1e-4), noise leaves {noise:.3e} "
+          f"of the top entry (bound 1e-6); updated params {param_err:.3e} absolute where "
+          f"|g| >= 1e-6 (bound 2e-6), {small:.3e} elsewhere (bound 2 lr = 2e-3)", flush=True)
+    if not (loss_err <= 1e-4 and grad_err <= 1e-4 and noise <= 1e-6 and param_err <= 2e-6
+            and small <= 2e-3):
+        raise SystemExit("the card's ICON step disagrees with the CPU's")
+
+
 PHASES = ("kernels", "render", "fast", "agreement", "train", "train_agreement", "trainer",
-          "model_rest", "parallel", "gate", "data")
+          "model_rest", "parallel", "gate", "data", "export", "reference_ckpt", "icon")
 
 
 def main() -> int:
@@ -3756,6 +4186,9 @@ def main() -> int:
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in built.items()} })", flush=True)
     print_ptxas_report(ptxas)
+
+    # the export phase's artifacts are exported in the background meanwhile
+    export_procs = start_exports(dev) if "export" in todo else None
 
     entries, launches = {}, {}
     if "kernels" in todo:
@@ -3845,9 +4278,13 @@ def main() -> int:
             norms.append(again["first"]["grad_norm"])
             del again
         print(f"first zju step's grad_norm over 4 runs of one program: {norms}; spread "
-              f"{(max(norms) - min(norms)) / norms[0]:.3e} of the first", flush=True)
+              f"{(max(norms) - min(norms)) / norms[0]:.3e} of the first (with torch's "
+              f"bicubic upsample: ~3e-3 of the gradient, PERF.md §6)", flush=True)
         phase("the zju step's nondeterministic ops (use_deterministic_algorithms, warn only)")
-        nondeterministic_ops(dev)
+        if nondeterministic_ops(dev):
+            raise SystemExit("torch reports a nondeterministic op in the zju step (the one "
+                             "it reported before, the bicubic upsample's backward, is two "
+                             "products now)")
         phase("full-width zju training steps with use_pallas_geo_mlp (K5)")
         on = train_full_width(dev, use_pallas_geo_mlp=True)
         compare_first_steps(off["first"], on["first"])
@@ -3953,6 +4390,27 @@ def main() -> int:
         if "onehot_bilinear" in entries:
             entries["onehot_bilinear"]["parallel_rank_launches"] = par["k2_launches"]
         print(f"phase parallel {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if "export" in todo:
+        t0 = time.perf_counter()
+        phase("the serving export (torch.export with the kernels as registered ops)")
+        exp = export_phase(dev, export_procs)
+        for name, n in exp["launches"].items():
+            if name in entries:
+                entries[name]["export_launches"] = n
+        print(f"phase export {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if "reference_ckpt" in todo:
+        t0 = time.perf_counter()
+        phase("the reference-checkpoint import (utils/import_reference.py)")
+        reference_ckpt_phase(dev)
+        print(f"phase reference_ckpt {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if "icon" in todo:
+        t0 = time.perf_counter()
+        phase("KeypointICON: the CLI at full widths (python -m keypointnerf_torch.train_icon)")
+        icon_phase(dev)
+        print(f"phase icon {time.perf_counter() - t0:.1f} s", flush=True)
 
     if set(todo) != set(PHASES):
         print(f"partial run ({todo}): no result line", flush=True)

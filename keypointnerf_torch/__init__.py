@@ -10,10 +10,11 @@ Layer map (each module sits where its JAX counterpart does):
               reader / writer (copies, no JAX-package import)
   geometry/   cameras, rays, AABB, sampling, compositing (true f32)
   ops/        bilinear multi-view lookups; hand-written CUDA kernels
-              (csrc/) built with nvcc at first use and bound with ctypes
+              (csrc/) built with nvcc at first use and bound with ctypes,
+              K2-K6 registered as torch ops (`kpnerf::`) for export
   models/     nn.Modules: spatial encoding, MLP stack, CNN encoders, IBR
               head, VGG19 features, the KeypointNeRF assembly (eval and
-              training forward) and the eval presets
+              training forward), the eval presets and KeypointICON
   render/     chunked full-image render with the exact empty-ray cull,
               several cameras of one subject, batches of subjects, orbit
               videos (video.py)
@@ -22,9 +23,12 @@ Layer map (each module sits where its JAX counterpart does):
               sample or a batch), and the Trainer loop (loop.py: data
               order, validation, checkpoints, resume, metrics)
   evaluation/ PSNR / SSIM by the reference protocol, PNG trees, the
-              test-set runner
+              test-set runner, marching-tetrahedra meshes
   utils/      configs/*.json -> dataclasses, weight carry from the JAX
-              parameter tree, checkpoints, the metrics stream, profiling
+              parameter tree, reference checkpoints, checkpoints, the
+              metrics stream, profiling
+  export.py   the serving export: a torch.export program of the render
+              (weights an input), and its loader
   parallel/   one process a device over torch.distributed: the
               data-parallel step (one gradient all-reduce), the sharded
               eval and render, the collective audit
@@ -35,12 +39,17 @@ Layer map (each module sits where its JAX counterpart does):
   quality_gate.py    the training-quality gate: the zju recipe trained on
               the synthetic rig and scored (python -m
               keypointnerf_torch.quality_gate; floors in quality_gate.json)
+  export_model.py    the export CLI (python -m keypointnerf_torch.export_model)
+  train_icon.py      KeypointICON training and CAPE-style evaluation
+              (python -m keypointnerf_torch.train_icon)
 
 The port renders with the `strict_preset` and `fast_preset` semantics
 (configs/zju_fast.json), scores renders, and trains the configs/zju.json
 recipe through its CLI on one device or several (one rank each), from
 the synthetic rig or a ZJU-MoCap tree (loader workers optional), with
-every model flag of the JAX package (the attention pools, `separate_cf`).
+every model flag of the JAX package (the attention pools, `separate_cf`);
+exports the render for serving, reconstructs single images with
+KeypointICON, and reads reference checkpoints.
 """
 
 __version__ = "0.1.0"

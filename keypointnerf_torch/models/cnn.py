@@ -13,7 +13,7 @@ align_corners=True 2x upsample, GroupNorm eps 1e-5 with min(32, C)
 groups, replication padding, 2x2 average pooling.
 
 Layers compute in their input's dtype with f32 parameters cast at use;
-the upsample interpolates in f32 as the JAX matrix product does. The
+the upsample is the JAX package's pair of f32 interpolation products. The
 normalizations follow Flax's GroupNorm: statistics in f32 with the
 one-pass variance E[x^2] - E[x]^2 clipped at 0 (torch's own GroupNorm
 takes two passes, and the deep tex encoder's instance norms amplify the
@@ -22,9 +22,12 @@ dtype.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..device import cached
 
 
 class Conv2d(nn.Conv2d):
@@ -80,10 +83,46 @@ def avg_pool2(x):
     return F.avg_pool2d(x, 2)
 
 
+def _upmat_values(n: int) -> np.ndarray:
+    """The (2n, n) matrix of the 2x bicubic align_corners interpolation
+    along one axis: torch's cubic convolution (a = -0.75), taps clamped
+    at the border, a clamped tap's weight added onto the edge pixel."""
+    m = 2 * n
+    A = np.zeros((m, n), np.float32)
+    a = -0.75
+
+    def cubic(t):
+        t = abs(t)
+        if t <= 1.0:
+            return (a + 2) * t**3 - (a + 3) * t**2 + 1
+        if t < 2.0:
+            return a * t**3 - 5 * a * t**2 + 8 * a * t - 4 * a
+        return 0.0
+
+    for i in range(m):
+        src = i * (n - 1) / (m - 1) if m > 1 else 0.0
+        i0 = int(np.floor(src))
+        t = src - i0
+        for k in range(-1, 3):
+            A[i, min(max(i0 + k, 0), n - 1)] += cubic(k - t)
+    return A
+
+
+@cached
+def upmat(n: int, device) -> torch.Tensor:
+    """`_upmat_values(n)` as an f32 tensor on `device`, made once a (n,
+    device) outside a trace (`device.cached`)."""
+    return torch.from_numpy(_upmat_values(n)).to(device)
+
+
 def upsample2x_bicubic_align_corners(x):
-    """2x bicubic upsample with align_corners=True, interpolated in f32."""
-    return F.interpolate(x.float(), scale_factor=2, mode="bicubic",
-                         align_corners=True).to(x.dtype)
+    """2x bicubic upsample with align_corners=True, the JAX package's
+    formula: two dense f32 interpolation products out = A x Aᵀ, cast back
+    to the input dtype. x (..., H, W). Its backward is two products too
+    (torch's bicubic backward kernel accumulates with atomics)."""
+    H, W = x.shape[-2:]
+    y = torch.matmul(upmat(H, x.device), x.float())
+    return torch.matmul(y, upmat(W, x.device).T).to(x.dtype)
 
 
 class ConvBlock(nn.Module):

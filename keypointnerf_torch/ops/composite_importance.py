@@ -23,7 +23,8 @@ gives 0 and may pick the other bin where a u lands on an edge, so neither
 is used here. The TPU kernel's triangular-matmul cumsums are how the MXU
 scans along lanes; only the values matter.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
+The wrapper calls the registered op `kpnerf::composite_importance`: on a
+CUDA tensor it launches the hand-written kernel
 (csrc/composite_importance.cu) or raises; on a CPU tensor it runs
 `composite_importance_plain`.
 """
@@ -114,6 +115,17 @@ def _kernel():
     return fn
 
 
+def _unpack(buf, R, S, F):
+    """The six outputs as views of the op's one buffer: [contrib (R, S) |
+    z_fine (R, F) | color (R, 3) | depth | acc | sdf (R,)], made by
+    as_strided (a chunk's call is short, so its host work counts)."""
+    at = R * (S + F)
+    view = buf.as_strided
+    return (view((R, 3), (3, 1), at), view((R,), (1,), at + 3 * R),
+            view((R,), (1,), at + 4 * R), view((R,), (1,), at + 5 * R),
+            view((R, S), (S, 1), 0), view((R, F), (F, 1), R * S))
+
+
 def _launch(z, alpha, sdf, rgb, u):
     R, S = z.shape
     F = u.shape[1]
@@ -121,16 +133,11 @@ def _launch(z, alpha, sdf, rgb, u):
         raise ValueError(f"the kernel takes at most {MAX_SAMPLES} samples a ray, got {S}")
     if not all(t.is_contiguous() for t in (z, alpha, sdf, rgb, u)):
         raise ValueError("the kernel takes contiguous inputs")
-    # A chunk's call is short, so its host work counts: the six outputs are
-    # views of one allocation, made by as_strided and passed as offsets of
-    # its base; the stream is the raw handle, and the device is switched
-    # only when it must be.
+    # the six outputs are one allocation (`_unpack`'s layout) passed as
+    # offsets of its base; the stream is the raw handle, and the device is
+    # switched only when it must be
     buf = torch.empty(R * (S + F + 6), dtype=torch.float32, device=z.device)
     at = R * (S + F)                              # color, then depth, acc, sdf
-    view = buf.as_strided
-    outs = (view((R, 3), (3, 1), at), view((R,), (1,), at + 3 * R),
-            view((R,), (1,), at + 4 * R), view((R,), (1,), at + 5 * R),
-            view((R, S), (S, 1), 0), view((R, F), (F, 1), R * S))
     base = buf.data_ptr()
     args = (z.data_ptr(), alpha.data_ptr(), sdf.data_ptr(), rgb.data_ptr(), u.data_ptr(),
             base + 4 * at, base + 4 * (at + 3 * R), base + 4 * (at + 4 * R),
@@ -144,7 +151,34 @@ def _launch(z, alpha, sdf, rgb, u):
     if err != 0:
         raise RuntimeError(f"composite_importance kernel launch failed: CUDA error {err}")
     fused_composite_importance.launches += 1
-    return outs
+    return buf
+
+
+@torch.library.custom_op("kpnerf::composite_importance", mutates_args=(),
+                         device_types="cuda")
+def composite_importance_op(z: torch.Tensor, alpha: torch.Tensor, sdf: torch.Tensor,
+                            rgb: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """K6 as a registered op (`torch.ops.kpnerf.composite_importance`): the
+    kernel on CUDA, `composite_importance_plain` on the CPU, shapes alone
+    under a trace. Returns the six outputs in one f32 buffer (`_unpack`)."""
+    return _launch(z, alpha, sdf, rgb, u)
+
+
+@composite_importance_op.register_kernel("cpu")
+def _(z, alpha, sdf, rgb, u):
+    color, depth, acc, sdf_out, contrib, z_fine = composite_importance_plain(
+        z, alpha, sdf, rgb, u)
+    return torch.cat([contrib.reshape(-1), z_fine.reshape(-1), color.reshape(-1),
+                      depth, acc, sdf_out])
+
+
+@composite_importance_op.register_fake
+def _(z, alpha, sdf, rgb, u):
+    R, S = z.shape
+    return z.new_empty((R * (S + u.shape[1] + 6),))
+
+
+_OP = torch.ops.kpnerf.composite_importance.default
 
 
 def fused_composite_importance(z, alpha, sdf, rgb, u):
@@ -154,14 +188,12 @@ def fused_composite_importance(z, alpha, sdf, rgb, u):
     (color (R, 3), depth (R,), acc (R,), sdf (R,), contrib (R, S), z_fine
     (R, F)), all f32. CUDA tensors go to the kernel (counted in
     `fused_composite_importance.launches`), CPU tensors to the plain
-    version.
+    version, both through the registered op.
     """
     _check(z, alpha, sdf, rgb, u)
-    if z.is_cuda:
-        return _launch(z, alpha, sdf, rgb, u)
-    if z.device.type != "cpu":
+    if z.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {z.device}")
-    return composite_importance_plain(z, alpha, sdf, rgb, u)
+    return _unpack(_OP(z, alpha, sdf, rgb, u), z.shape[0], z.shape[1], u.shape[1])
 
 
 fused_composite_importance.launches = 0

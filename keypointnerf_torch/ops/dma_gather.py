@@ -24,9 +24,10 @@ JAX package's program computes on the CPU (tests/test_torch_fused_map.py):
 
 Channels need no padding: the TPU kernel's 128-lane pad is a layout of
 its DMA slices, not part of the function, so the map may keep its 84
-channels. On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/dma_gather.cu, one launch for all views; its threads move a row in
-pieces of `feat_sample.piece_bytes`) or raises; on a CPU tensor it runs
+channels. The wrapper calls the registered op `kpnerf::dma_gather`: on a
+CUDA tensor it launches the hand-written kernel (csrc/dma_gather.cu, one
+launch for all views; its threads move a row in pieces of
+`feat_sample.piece_bytes`) or raises; on a CPU tensor it runs
 `dma_gather_plain`.
 """
 from __future__ import annotations
@@ -84,20 +85,36 @@ def _launch(feats, xy):
     return out
 
 
+@torch.library.custom_op("kpnerf::dma_gather", mutates_args=(), device_types="cuda")
+def dma_gather_op(feats: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """K3 as a registered op (`torch.ops.kpnerf.dma_gather`): the kernel on
+    CUDA, `dma_gather_plain` on the CPU, shapes alone under a trace."""
+    return _launch(feats, xy)
+
+
+dma_gather_op.register_kernel("cpu")(dma_gather_plain)
+
+
+@dma_gather_op.register_fake
+def _(feats, xy):
+    return feats.new_empty((feats.shape[0], xy.shape[1], feats.shape[3]))
+
+
+_OP = torch.ops.kpnerf.dma_gather.default
+
+
 def multiview_bilinear_sample_dma(feats, xy):
     """K3's bilinear lookup of V maps at per-view NDC points.
 
     feats: (V, H, W, C) f32 or bf16; xy: (V, N, 2) f32. Returns (V, N, C)
     in feats.dtype. CUDA tensors go to the kernel (counted in
     `multiview_bilinear_sample_dma.launches`), CPU tensors to the plain
-    version.
+    version, both through the registered op.
     """
     check_lookup(feats, xy, _DTYPE_CODE)
-    if feats.is_cuda:
-        return _launch(feats, xy)
-    if feats.device.type != "cpu":
+    if feats.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {feats.device}")
-    return dma_gather_plain(feats, xy)
+    return _OP(feats, xy)
 
 
 multiview_bilinear_sample_dma.launches = 0

@@ -12,19 +12,21 @@ rel_z_decay, K4 otherwise).
 following the JAX `_mlp_stack` / `_sp_mlp_stack` line by line: concat then
 one product per layer, `sin` / `cos` of each level taken directly (not by
 `spatial_encode`'s double-angle recursion), f32 pooling. `dot` rounds both
-operands to `compute_dtype` and keeps the sum in f32 (`models.mlp.dot_f32`,
+operands to `compute_dtype` and keeps the sum in f32 (`ops.dense.dot_f32`,
 whose autograd form rounds each operand gradient once, as JAX's does).
 
-On CUDA tensors the wrappers launch a hand-written kernel
-(csrc/fused_geo_mlp.cu; counted in `.launches` and, by route, in
-`.launches_by_route`) or raise; on CPU tensors they run the plain version.
+The wrappers call the registered ops `kpnerf::geo_mlp` / `sp_geo_mlp`: on
+CUDA tensors they launch a hand-written kernel (csrc/fused_geo_mlp.cu;
+counted in `.launches` and, by route, in `.launches_by_route`) or raise;
+on CPU tensors they run the plain version.
 `kernel_route` picks the kernel from the shapes before any launch: with
 bf16 products the wgmma kernel (every layer's weights resident in shared
 memory, built for the zju widths) where it takes them, else the wmma
 kernel (any widths, weights read from L2); f32 products take the f32
 kernel. It raises only where no kernel takes the shapes (a tile over one
-block's shared memory, more than 12 encoding levels). Either way the call
-is a `torch.autograd.Function` that saves only its inputs: its backward
+block's shared memory, more than 12 encoding levels). Where autograd
+records, the call is a `torch.autograd.Function` that saves only its
+inputs (elsewhere the op is called directly): its backward
 re-runs the plain stack under autograd and differentiates that. This
 recompute is the ported semantics of the JAX kernels' `custom_vjp` (whose
 backward is the XLA recompute of the same stack), not a fallback; the
@@ -35,11 +37,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
-from ..models.mlp import dot_f32, softplus100
+from .dense import dot_f32, softplus100
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -141,9 +143,8 @@ def _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
     for name, t in (("mask", mask), ("weight", weight)):
         if t.shape != (V, N, 1):
             raise ValueError(f"{name} must be ({V}, {N}, 1), got {tuple(t.shape)}")
-    c0, c1 = f0.shape[-1], f1.shape[-1]
-    outs = [w.shape[-1] for w in ws[0::2]]
-    h1, h2, h3, dl, g1, g2, dout = outs
+    c0, c1, h1, h2, h3, dl, g1, g2, dout = _widths(f0, f1, ws)
+    outs = (h1, h2, h3, dl, g1, g2, dout)
     ins = (dsp + c0, h1, h2 + c1, h3, 2 * dl, g1, g2)
     for i, (w, b, n_in, n_out) in enumerate(zip(ws[0::2], ws[1::2], ins, outs)):
         if w.shape != (n_in, n_out) or b.shape != (n_out,):
@@ -154,7 +155,12 @@ def _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
             raise TypeError(f"the fused geometry MLP takes float32 tensors, got {t.dtype}")
         if t.device != first.device:
             raise ValueError(f"tensors on {first.device} and {t.device}")
-    return c0, c1, h1, h2, h3, dl, g1, g2, dout
+    return _widths(f0, f1, ws)
+
+
+def _widths(f0, f1, ws):
+    """(c0, c1, h1, h2, h3, dl, g1, g2, dout) of checked inputs."""
+    return (f0.shape[-1], f1.shape[-1], *(w.shape[-1] for w in ws[0::2]))
 
 
 # The kernels' limits, mirrored from csrc/fused_geo_mlp.cu so that
@@ -324,23 +330,75 @@ def _plain(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
     return sp_mlp_stack_plain(*lead, f0, f1, mask, weight, ws, *sp_args, compute_dtype)
 
 
+# K4 and K5 as registered ops (`torch.ops.kpnerf.geo_mlp` / `sp_geo_mlp`):
+# the kernel on CUDA (counted on the public wrapper), the plain stack on the
+# CPU, the output shapes alone under a trace. Inputs are checked before the
+# op is called.
+_Outs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@torch.library.custom_op("kpnerf::geo_mlp", mutates_args=(), device_types="cuda")
+def geo_mlp_op(sp: torch.Tensor, f0: torch.Tensor, f1: torch.Tensor, mask: torch.Tensor,
+               weight: torch.Tensor, ws: List[torch.Tensor],
+               compute_dtype: torch.dtype) -> _Outs:
+    return _launch(geo_mlp_apply, (sp,), f0, f1, mask, weight, ws, compute_dtype, None,
+                   _widths(f0, f1, ws))
+
+
+@geo_mlp_op.register_kernel("cpu")
+def _(sp, f0, f1, mask, weight, ws, compute_dtype):
+    return mlp_stack_plain(sp, f0, f1, mask, weight, ws, compute_dtype)
+
+
+@torch.library.custom_op("kpnerf::sp_geo_mlp", mutates_args=(), device_types="cuda")
+def sp_geo_mlp_op(pts_cam: torch.Tensor, kpt_cam: torch.Tensor, f0: torch.Tensor,
+                  f1: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
+                  ws: List[torch.Tensor], sp_level: int, sp_sigma: float, sp_scale: float,
+                  compute_dtype: torch.dtype) -> _Outs:
+    return _launch(sp_geo_mlp_apply, (pts_cam, kpt_cam), f0, f1, mask, weight, ws,
+                   compute_dtype, (sp_level, sp_sigma, sp_scale), _widths(f0, f1, ws))
+
+
+@sp_geo_mlp_op.register_kernel("cpu")
+def _(pts_cam, kpt_cam, f0, f1, mask, weight, ws, sp_level, sp_sigma, sp_scale,
+      compute_dtype):
+    return sp_mlp_stack_plain(pts_cam, kpt_cam, f0, f1, mask, weight, ws, sp_level,
+                              sp_sigma, sp_scale, compute_dtype)
+
+
+def _fake_outs(f0, ws):
+    V, N = f0.shape[:2]
+    dl, dout = ws[6].shape[-1], ws[12].shape[-1]
+    empty = lambda *shape: f0.new_empty(shape, dtype=torch.float32)  # noqa: E731
+    return empty(N, dout), empty(N, 1), empty(V, N, dl), empty(N, 2 * dl)
+
+
+geo_mlp_op.register_fake(lambda sp, f0, f1, mask, weight, ws, dt: _fake_outs(f0, ws))
+sp_geo_mlp_op.register_fake(
+    lambda pts_cam, kpt_cam, f0, f1, mask, weight, ws, lvl, sigma, scale, dt:
+    _fake_outs(f0, ws))
+
+
+def _call_op(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
+    if f0.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {f0.device}")
+    if sp_args is None:
+        return torch.ops.kpnerf.geo_mlp.default(*lead, f0, f1, mask, weight, list(ws),
+                                                compute_dtype)
+    return torch.ops.kpnerf.sp_geo_mlp.default(*lead, f0, f1, mask, weight, list(ws),
+                                               *sp_args, compute_dtype)
+
+
 class _FusedGeoMLP(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain stack (CPU). Backward: the
-    plain stack re-run from the saved inputs and differentiated, which is
-    what the JAX kernels' custom VJP does."""
+    """Forward: the registered op (the kernel on CUDA, the plain stack on
+    the CPU). Backward: the plain stack re-run from the saved inputs and
+    differentiated, which is what the JAX kernels' custom VJP does."""
 
     @staticmethod
-    def forward(ctx, wrapper, compute_dtype, sp_args, n_lead, *tensors):
+    def forward(ctx, compute_dtype, sp_args, n_lead, *tensors):
         lead, (f0, f1, mask, weight), ws = tensors[:n_lead], tensors[n_lead:n_lead + 4], \
             tensors[n_lead + 4:]
-        widths = _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args)
-        if f0.is_cuda:
-            outs = _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args,
-                           widths)
-        elif f0.device.type == "cpu":
-            outs = _plain(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args)
-        else:
-            raise ValueError(f"no kernel for device {f0.device}")
+        outs = _call_op(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args)
         ctx.save_for_backward(*tensors)
         ctx.config = (compute_dtype, sp_args, n_lead)
         ctx.mark_non_differentiable(outs[1])              # valid: a comparison
@@ -350,7 +408,7 @@ class _FusedGeoMLP(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_out, _g_valid, g_lv, g_lf):
         compute_dtype, sp_args, n_lead = ctx.config
-        needs = ctx.needs_input_grad[4:]
+        needs = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
             out, _, lv, lf = _plain(ins[:n_lead], *ins[n_lead:n_lead + 4], ins[n_lead + 4:],
@@ -358,8 +416,18 @@ class _FusedGeoMLP(torch.autograd.Function):
             wanted = [t for t in ins if t.requires_grad]
             grads = iter(torch.autograd.grad((out, lv, lf), wanted, (g_out, g_lv, g_lf),
                                              allow_unused=True))
-        return (None, None, None, None,
+        return (None, None, None,
                 *(next(grads) if need else None for need in needs))
+
+
+def _apply(compute_dtype, sp_args, lead, f0, f1, mask, weight, ws):
+    """Check, then the op: through `_FusedGeoMLP` where autograd records,
+    directly where it does not (inference, an export trace)."""
+    _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args)
+    tensors = (*lead, f0, f1, mask, weight, *ws)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _FusedGeoMLP.apply(compute_dtype, sp_args, len(lead), *tensors)
+    return _call_op(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args)
 
 
 def _folded(params) -> Sequence[torch.Tensor]:
@@ -373,8 +441,7 @@ def geo_mlp_apply(params, sp, f0, f1, mask, weight, compute_dtype=torch.float32)
     (V, N, Dl), latent_fused (N, 2 Dl), f32. CUDA tensors go to the kernel
     (counted in `geo_mlp_apply.launches`), CPU tensors to the plain version;
     N is any size."""
-    return _FusedGeoMLP.apply(geo_mlp_apply, compute_dtype, None, 1,
-                              sp, f0, f1, mask, weight, *_folded(params))
+    return _apply(compute_dtype, None, (sp,), f0, f1, mask, weight, _folded(params))
 
 
 def sp_geo_mlp_apply(params, pts_cam, kpt_cam, f0, f1, mask, weight, sp_level=3,
@@ -382,9 +449,8 @@ def sp_geo_mlp_apply(params, pts_cam, kpt_cam, f0, f1, mask, weight, sp_level=3,
     """K5, differentiable: K4 with the rel_z_decay encoding built in the
     kernel from pts_cam (V, N, 3) and kpt_cam (V, K, 3). Launches are
     counted in `sp_geo_mlp_apply.launches`."""
-    return _FusedGeoMLP.apply(sp_geo_mlp_apply, compute_dtype,
-                              (int(sp_level), float(sp_sigma), float(sp_scale)), 2,
-                              pts_cam, kpt_cam, f0, f1, mask, weight, *_folded(params))
+    return _apply(compute_dtype, (int(sp_level), float(sp_sigma), float(sp_scale)),
+                  (pts_cam, kpt_cam), f0, f1, mask, weight, _folded(params))
 
 
 geo_mlp_apply.launches = 0

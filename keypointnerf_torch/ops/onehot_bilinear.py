@@ -14,10 +14,11 @@ TPU kernel's rounding order (see csrc/onehot_bilinear.cu):
 
 with every product and sum in f32 and rnd() the round to the map dtype.
 
-On a CUDA tensor the wrapper launches the hand-written kernel (one launch
-for all views; a thread a point, moving its row in pieces of
-`feat_sample.piece_bytes`) or raises; on a CPU tensor it runs
-`onehot_bilinear_plain`, the same five steps as tensor ops.
+The wrapper calls the registered op `kpnerf::onehot_bilinear`: on a CUDA
+tensor it launches the hand-written kernel (one launch for all views; a
+thread a point, moving its row in pieces of `feat_sample.piece_bytes`) or
+raises; on a CPU tensor it runs `onehot_bilinear_plain`, the same five
+steps as tensor ops.
 """
 from __future__ import annotations
 
@@ -70,20 +71,37 @@ def _launch(feats, xy):
     return out
 
 
+@torch.library.custom_op("kpnerf::onehot_bilinear", mutates_args=(), device_types="cuda")
+def onehot_bilinear_op(feats: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """K2 as a registered op (`torch.ops.kpnerf.onehot_bilinear`): the
+    kernel on CUDA, `onehot_bilinear_plain` on the CPU, shapes alone under
+    a trace, so an exported program carries it."""
+    return _launch(feats, xy)
+
+
+onehot_bilinear_op.register_kernel("cpu")(onehot_bilinear_plain)
+
+
+@onehot_bilinear_op.register_fake
+def _(feats, xy):
+    return feats.new_empty((feats.shape[0], xy.shape[1], feats.shape[3]))
+
+
+_OP = torch.ops.kpnerf.onehot_bilinear.default
+
+
 def multiview_onehot_bilinear_sample(feats, xy):
     """Exact bilinear lookup of V maps at per-view NDC points.
 
     feats: (V, H, W, C) f32 or bf16; xy: (V, N, 2) f32. Returns (V, N, C)
     in feats.dtype. CUDA tensors go to the kernel (counted in
     `multiview_onehot_bilinear_sample.launches`), CPU tensors to the plain
-    version.
+    version, both through the registered op.
     """
     check_lookup(feats, xy, _DTYPE_CODE)
-    if feats.is_cuda:
-        return _launch(feats, xy)
-    if feats.device.type != "cpu":
+    if feats.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {feats.device}")
-    return onehot_bilinear_plain(feats, xy)
+    return _OP(feats, xy)
 
 
 multiview_onehot_bilinear_sample.launches = 0

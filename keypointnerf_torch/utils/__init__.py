@@ -6,7 +6,8 @@ from .config import (
     load_config,
     save_config,
 )
-from .convert import state_dict_from_jax, vgg_params_from_jax
+from .convert import icon_state_dict_from_jax, state_dict_from_jax, vgg_params_from_jax
+from .import_reference import load_reference_checkpoint, reference_state_dict
 from .metrics_writer import MetricsWriter
 from .profiling import StepTimer, annotate, check_finite, enable_nan_checks, trace
 
@@ -20,7 +21,10 @@ __all__ = [
     "check_finite",
     "enable_nan_checks",
     "get_model",
+    "icon_state_dict_from_jax",
     "load_config",
+    "load_reference_checkpoint",
+    "reference_state_dict",
     "save_config",
     "state_dict_from_jax",
     "trace",

@@ -23,7 +23,8 @@ in the importer; its leaves go to `mlp_geo.pool.{att | q_proj, k_proj}`
 Every step is a rename, a transpose or a reshape of one leaf, so the same
 functions carry a JAX *gradient* tree (same structure as the params) onto
 the port's parameter names. `vgg_params_from_jax` does the same for the
-loss's VGG19 features (`{"params": {"conv_{s}_{i}": {kernel, bias}}}`).
+loss's VGG19 features (`{"params": {"conv_{s}_{i}": {kernel, bias}}}`),
+`icon_state_dict_from_jax` for the KeypointICON model.
 """
 from __future__ import annotations
 
@@ -176,6 +177,18 @@ def state_dict_from_jax(params: Mapping, cfg) -> StateDict:
     for ref, flax_name in _IBR_DENSE.items():
         _dense(sd, f"mlp_tex.{ref}", head[flax_name])
     _dense(sd, "ibr_compress_gfeat", p["gcompress"])
+    return sd
+
+
+def icon_state_dict_from_jax(params: Mapping, cfg) -> StateDict:
+    """The `models.keypoint_icon.KeypointICON` state_dict for the JAX
+    KeypointICON params: the HGFilter `encoder` and the weight-normed
+    `head` (its last layer plain). cfg: a KeypointICONConfig of either
+    package."""
+    p = params.get("params", params)
+    sd: StateDict = {}
+    _hgfilter(sd, "encoder", cfg.geo_n_stack, cfg.geo_n_downsample, p["encoder"])
+    _mlp_layers(sd, "head", len(cfg.mlp_hidden) + 1, p["head"])
     return sd
 
 
