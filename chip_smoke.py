@@ -5,11 +5,15 @@
 
 Phases (any failure exits nonzero):
   1. environment: the card (nvidia-smi name and power limit), torch and
-     CUDA versions, TF32 switched off for matmuls and cuDNN convs;
-  2. build: nvcc compiles every kernel of keypointnerf_torch/csrc/ (one
-     process per source, all at once) into build/kernels/, and beside
-     them fused_geo_mlp.cu with -Xptxas -v for K4 / K5's registers and
-     spills;
+     CUDA versions, TF32 switched off for matmuls and cuDNN convs, and
+     CUBLAS_WORKSPACE_CONFIG as the process sees it before its first work
+     on the card (importing the port puts it in place; training's
+     deterministic mode needs it);
+  2. build: nvcc compiles every kernel of keypointnerf_torch/csrc/ and
+     the earlier K1 (yardsticks/onehot_dmap_atomic.cu, the yardstick of
+     K1's time; one process per source, all at once) into build/kernels/,
+     and beside them fused_geo_mlp.cu with -Xptxas -v for K4 / K5's
+     registers and spills;
   3. kernels: each kernel (K2 the tex lookup, K1 the coarse map's
      gradient, K4 / K5 the fused geometry MLP without / with the in-kernel
      spatial encoding, K3 the fused map's patch-gather lookup, K6 the fused
@@ -37,7 +41,9 @@ Phases (any failure exits nonzero):
      bf16 cotangents, timed at the fine and the coarse query's N with each
      pass's device time; K6 beside the device time and a call's time of an
      empty kernel, the floor under both, and again with falling cdfs (its
-     warp-reduction path);
+     warp-reduction path); every K1 check also launches K1 twice on the
+     same inputs and holds the two bit-equal, and K1 runs at a hot-cell
+     input too (the fine query's points in three cells a view);
   4. render: one 512² camera of the strict preset at full width (the zju
      architecture, bf16, cull budget 0.1875, seeded random weights) on the
      synthetic 512² scene with 3 source views; checks finite outputs,
@@ -80,24 +86,36 @@ Phases (any failure exits nonzero):
      read by the port's load_config (bf16, 64x64 patch, 64+64 samples,
      matmul VJP with K1, VGG loss on random frozen VGG19, Adam 5e-4) on
      the synthetic 512² scene: 2
-     warm-up and 5 timed steps, finite losses, K1 launched twice a step,
+     warm-up and 5 timed steps, finite losses, K1 launched six times a
+     step (every map gradient, k1_per_step),
      parameters changed and finite; s/step, rays/s, peak memory, one
      step's top CUDA kernels and the device's idle share; K1 at the first
      step's own (xy, cotangent)
      of both its calls (captured by wrapping the wrapper): how the points
      fall on the map's cells, K1 against its plain version and its time
      with the cotangent as the step hands it over (bf16) and widened, and
-     the two launches' sum; the same step three times more (the floor of
-     float atomics: loss terms exact, the gradient by relative L2,
-     grad_norm and its significant leaves); then the same steps with
-     `use_pallas_geo_mlp` (K5 twice a step, its backward the recompute),
-     the first step's loss terms and gradient norm held against the
-     flag-off run's; with `remat` and with `remat_save_gathers` (first
-     steps held against the remat-off run as the floor runs are; peak
-     memory and s/step beside it); and with the fused feature map (K1 at
-     the 3 x 512² x 84 map, twice a step, held against its plain version
-     and timed at the step's own points, its byte bound and
-     grid_sampler_2d_backward's time beside);
+     the two launches' sum, beside the earlier K1's time on the same
+     inputs (at most K1_TIME_RATIO_BOUND of it); K1 at every one of the
+     step's six calls (check_k1 and its time, beside what the parent ran
+     for that map: the earlier K1 for the coarse map, the plain version's
+     index_add_ for the others); the same step three times more, each
+     bit-equal to the first (every loss term, every gradient leaf, the
+     parameters after Adam); one step checked to run in strict
+     deterministic mode (read in its forward; an op with no deterministic
+     implementation would raise) and to leave the process in torch's
+     defaults; the encoders' replication padding against the formulation
+     torch takes in the mode (gradient bit-equal, times); s/step and kernel
+     time in deterministic mode against torch's defaults, in turns on one
+     model (DETERMINISTIC_COST_BOUND); then
+     the same steps with `use_pallas_geo_mlp` (K5 twice a step, its
+     backward the recompute), the first step's loss terms and gradient
+     norm held against the flag-off run's; with `remat` and with
+     `remat_save_gathers` (first steps bit-equal to the remat-off run's;
+     peak memory and s/step beside it); and with the fused feature map
+     (K1 at the 3 x 512² x 84 map twice a step, held against its plain
+     version and the earlier K1 and timed at the step's own points, its
+     byte bound and grid_sampler_2d_backward's time beside; K1 at all
+     four of its calls as above; the step twice, bit for bit);
   8. train agreement: one toy f32 step on the card against the same step
      on the CPU (loss, every gradient, the updated parameters), with
      `use_pallas_geo_mlp`, `fused_feature_map` and `remat` off and on;
@@ -121,23 +139,27 @@ Phases (any failure exits nonzero):
  11. parallel: the zju step in a one-rank NCCL group (the all-reduced
      gradients and terms bit-equal to the step's own, the parameters to
      the update without a group; s/step with and without); the
-     one-process step on a global batch of 2, twice (the atomics' floor);
+     one-process step on a global batch of 2, twice, bit for bit;
      then 2 ranks (torch.multiprocessing; gloo on one card, chosen and
      printed, NCCL where there are two cards): 2 + 3 data-parallel zju
      steps at local batch 1 (one gradient all-reduce of the parameter
-     bytes and one of the loss terms a step, K1 twice a sample, the
+     bytes and one of the loss terms a step, K1 six times a sample, the
      parameters bit-equal across ranks after every step, s/step and peak
      memory, the first step held against the one-process global batch by
-     the floor's bounds), the 512² strict camera sharded over the ranks
+     bounds: another program), the 512² strict camera sharded over the ranks
      (against the single-process render, one gather, K2 48 launches in
      all, cull_overflow 0 in each rank's rays), the Trainer (2 steps with
      a val and a checkpoint, a resume bit-equal to the saved state, to 4;
      rank 0 alone writes) and run_eval(sharded=True) on 2 samples (scores
      equal to the unsharded run's); each phase's seconds printed;
- 12. gate: the port's training-quality gate (`python -m
+ 12. gate: the gate's step twice from its seed for GATE_REPEAT_STEPS
+     steps, bit for bit, K1 at all six calls of its first step as in the
+     train phase, and its step in deterministic mode against torch's
+     defaults in turns (what the mode and K1 add to a gate step); the
+     port's training-quality gate (`python -m
      keypointnerf_torch.quality_gate`'s main()) at gate geometry for 150
      steps with one evaluation, recorded into build/chip_smoke_gate/:
-     s/step, K1 twice a step, the host's waits on the device in a chunk
+     s/step, K1 six times a step, the host's waits on the device in a chunk
      (torch.cuda's sync debug mode), the loss of the first and last chunk,
      finite seen / unseen PSNR / SSIM and the fast preset's cull overflow 0
      (the gate exits 1 otherwise);
@@ -149,7 +171,7 @@ Phases (any failure exits nonzero):
      native/kpnerf_data.cc, the loader's samples/s inline and with 4
      prefetcher threads (bit-equal samples), the train CLI fed from the tree
      (`--set data.dataset=zju data.num_workers=4`, and 0, 8 steps each,
-     K1 twice a step; s/step and the host's share), --run_val on the val
+     K1 six times a step; s/step and the host's share), --run_val on the val
      split, and render_dynamic for 2 orbit frames with configs/zju_fast.json
      (cull_overflow 0);
  14. export: the serving export (keypointnerf_torch/export.py, the kernels
@@ -175,10 +197,12 @@ Phases (any failure exits nonzero):
      then a toy f32 ICON step card vs CPU;
  17. prints the kernels line, the card line and, last, the result line.
 
-The train phase also lists the ops torch reports as nondeterministic in
-one zju step (use_deterministic_algorithms, warn only) and fails if there
-is one (the one it reported before, the bicubic upsample's backward, is two products
-since the upsample took JAX's formula); the trainer phase
+Every training step runs in the port's deterministic mode
+(keypointnerf_torch/device.py deterministic_training, a context around
+the step's body) and nothing else does: the render phase renders the 512²
+strict camera once more after the process has entered and left the mode
+(torch's defaults in its encoders and queries, bit-equal, rays/s beside
+the first render's). The trainer phase
 also runs the first call with 4 loader workers; model_rest also times
 K5's 3-output module path and renders the 2-output camera with
 reuse_coarse_eval=False (the 128-depth union), a separate_cf model
@@ -196,8 +220,10 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -626,7 +652,74 @@ def _bf16_ulps_apart(a, b):
     return (a - b).abs() > ulp
 
 
-K1_PASSES = ("count_kernel", "scan_kernel", "scatter_kernel", "accumulate_kernel")
+# K1's kernels, and those of its earlier design (yardsticks/onehot_dmap_atomic.cu)
+K1_PASSES = ("keys_kernel", "sort_pass_kernel", "accumulate_kernel", "pieces_kernel",
+             "combine_kernel")
+ATOMIC_K1_PASSES = ("count_kernel", "scan_kernel", "scatter_kernel", "accumulate_kernel")
+# K1 against the earlier design at the training steps' own points, both timed
+# here: the fixed order may cost at most this much more
+K1_TIME_RATIO_BOUND = 1.25
+YARDSTICKS = Path(__file__).resolve().parent / "yardsticks"
+
+
+def yardstick_path(name) -> Path:
+    from keypointnerf_torch.ops._build import BUILD_DIR
+
+    digest = hashlib.sha1((YARDSTICKS / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def start_yardstick_build(name):
+    """nvcc of yardsticks/<name>.cu with the port's flags, started now
+    (beside the port's own builds); `finish_build` waits for it."""
+    from keypointnerf_torch.ops._build import BUILD_DIR, NVCC_FLAGS, _nvcc
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = yardstick_path(name)
+    if out.exists():
+        return out, None
+    return out, subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(YARDSTICKS / f"{name}.cu")],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_build(started) -> None:
+    out, proc = started
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed for {out.name}:\n{log}")
+
+
+@functools.cache
+def atomic_k1_lib():
+    """The earlier K1 (float atomics at each cell run's end), loaded with
+    ctypes: the yardstick of K1's time, never part of the port."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(yardstick_path("onehot_dmap_atomic")))
+    lib.kpn_onehot_dmap_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.kpn_onehot_dmap_scratch_bytes.restype = ctypes.c_int64
+    lib.kpn_onehot_dmap.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.kpn_onehot_dmap.restype = ctypes.c_int
+    return lib
+
+
+def atomic_k1(xy, g, H, W, dt):
+    """The earlier K1 on (xy, g): the (V, H, W, C) f32 map gradient."""
+    lib = atomic_k1_lib()
+    V, N, C = g.shape
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    dmap = torch.empty((V, H, W, C), dtype=torch.float32, device=g.device)
+    size = lib.kpn_onehot_dmap_scratch_bytes(V, N, H, W)
+    scratch = torch.empty(size, dtype=torch.uint8, device=g.device)
+    err = lib.kpn_onehot_dmap(xy.data_ptr(), g.data_ptr(), dmap.data_ptr(), scratch.data_ptr(),
+                              size, V, N, H, W, C, codes[dt], codes[g.dtype],
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise SystemExit(f"the earlier K1 failed to launch: CUDA error {err}")
+    return dmap
 
 
 def k1_cotangent_dtypes(k1):
@@ -640,13 +733,43 @@ def k1_cotangent_dtypes(k1):
     return (torch.float32, torch.bfloat16)
 
 
-def check_k1(k1, xy, g, H, W, dt, what) -> float:
-    """K1 against its plain version on (xy, g) with terms rounded to `dt`;
-    returns the max abs error, exits on disagreement."""
+def plain_f64(xy, g, H, W, dt):
+    """The plain version's terms (rounded to `dt` as it rounds them) summed
+    in f64: the reference where a cell holds ~10^5 points and any f32 sum
+    order, the plain version's too, rounds by more than K1's bound."""
+    from keypointnerf_torch.ops.feat_sample import bilinear_coords
+
+    V, N, C = g.shape
+    x0, y0, wx, wy = bilinear_coords(xy, H, W)
+    rnd = lambda t: t.to(dt).float()  # noqa: E731
+    base = (torch.arange(V, device=g.device)[:, None] * H + y0) * W + x0
+    out = torch.zeros(V * H * W, C, dtype=torch.float64, device=g.device)
+    for yw, dy in ((rnd(1.0 - wy), 0), (rnd(wy), 1)):
+        for xw, dx in ((1.0 - wx, 0), (wx, 1)):
+            out.index_add_(0, (base + dy * W + dx).reshape(-1),
+                           (yw[..., None] * rnd(xw[..., None] * g.float())).double()
+                           .reshape(-1, C))
+    return out.reshape(V, H, W, C)
+
+
+def check_k1(k1, xy, g, H, W, dt, what, f64=False) -> float:
+    """K1 against its plain version on (xy, g) with terms rounded to `dt`
+    (with `f64`, against its terms summed in f64, the plain version's own
+    distance from that printed beside), and a second launch on the same
+    inputs bit-equal to the first; returns the max abs error, exits on
+    disagreement."""
     V, _, C = g.shape
     got = k1.multiview_dmap_onehot(xy, g, H, W, dt)
+    again = k1.multiview_dmap_onehot(xy, g, H, W, dt)
     ref = k1.onehot_dmap_plain(xy, g, H, W, dt)
+    if f64:
+        exact = plain_f64(xy, g, H, W, dt)
+        plain_err = (ref.double() - exact).abs().max().item()
+        ref = exact.float()
+        print(f"K1 {what}: the plain version (f32 sums) is {plain_err} from the f64 sum",
+              flush=True)
     torch.cuda.synchronize()
+    same = torch.equal(got, again)
     finite = bool(torch.isfinite(got).all())
     err = (got - ref).abs().max().item() if finite else math.inf
     tol = 1e-5 * ref.abs().max().item()
@@ -663,9 +786,12 @@ def check_k1(k1, xy, g, H, W, dt, what) -> float:
           f"{str(g.dtype)[6:]} N={xy.shape[1]}: max_abs_err={err} (bound {tol}: 1e-5 of "
           f"max|dmap|, sum order); as bf16 {differ:.6f} of entries differ, "
           f"{int(apart.sum())} by more than 1 ulp (all within the f32 bound: "
-          f"{not bool((apart & ~near_zero).any())}) {'ok' if ok else 'FAIL'}", flush=True)
+          f"{not bool((apart & ~near_zero).any())}); two launches bit-equal {same} "
+          f"{'ok' if ok and same else 'FAIL'}", flush=True)
     if not ok:
         raise SystemExit(f"K1 disagrees with its plain version: {err}")
+    if not same:
+        raise SystemExit("two K1 launches on the same inputs differ")
     return err
 
 
@@ -685,14 +811,25 @@ def k1_bound(V, N, H, W, C, g_esize) -> dict:
 
 def time_k1(k1, xy, g, H, W, dt) -> dict:
     """K1's time on (xy, g) by CUDA events (a call; every pass), with the
-    profiled device time of each pass beside."""
+    profiled device time of each pass beside (under programmatic dependent
+    launch a pass's device time includes its wait for the pass before)."""
     call = lambda: k1.multiview_dmap_onehot(xy, g, H, W, dt)  # noqa: E731
     ms = cuda_ms(call, iters=20)
-    passes = {}
-    if hasattr(k1, "scratch_bytes"):               # the binned design's passes
-        passes = {name: kernel_device_ms(call, name, iters=5) for name in K1_PASSES}
+    passes = {name: kernel_device_ms(call, name, iters=5) for name in K1_PASSES}
     return {"ms": ms, "passes": passes, **k1_bound(*g.shape[:2], H, W, g.shape[2],
                                                    g.element_size())}
+
+
+def time_k1_against_atomic(k1, xy, g, H, W, dt) -> dict:
+    """K1 and the earlier design (yardsticks/onehot_dmap_atomic.cu) on the
+    same inputs, by CUDA events in turns (earlier, K1, K1, earlier), each
+    pass of the earlier one profiled beside."""
+    ours = lambda: k1.multiview_dmap_onehot(xy, g, H, W, dt)  # noqa: E731
+    theirs = lambda: atomic_k1(xy, g, H, W, dt)  # noqa: E731
+    t = [cuda_ms(f, iters=20) for f in (theirs, ours, ours, theirs)]
+    return {"ms": (t[1] + t[2]) / 2, "atomic_ms": (t[0] + t[3]) / 2, "turns": t,
+            "atomic_passes": {name: kernel_device_ms(theirs, name, iters=5)
+                              for name in ATOMIC_K1_PASSES}}
 
 
 def k1_yardsticks(k1, xy, g, H, W, dt, what):
@@ -728,6 +865,16 @@ def check_onehot_dmap(dev) -> dict:
         for dt in (torch.float32, torch.bfloat16):
             for gt in g_dtypes:
                 errs.append(check_k1(k1, xy, g.to(gt), H, W, dt, "uniform"))
+    # hot cells: the fine query's points all in three cells a view (two of
+    # one parity class), so each cell's run crosses ~1,365 of the 128-point
+    # segments a warp sums, and its pieces are summed in segment order
+    V, H, W, C, N = 3, 128, 128, 64, 4096 * 128
+    cells = np.array([[-0.5, 0.2], [0.1, 0.2], [0.7, -0.3]], np.float32) + 1e-3
+    xy = torch.as_tensor(cells[rs.integers(0, 3, (V, N))], device=dev)
+    g = torch.as_tensor(rs.normal(size=(V, N, C)).astype(np.float32), device=dev)
+    print(f"K1 hot-cell input: {cell_spread(xy, H, W)}", flush=True)
+    for gt in g_dtypes:
+        errs.append(check_k1(k1, xy, g.to(gt), H, W, torch.bfloat16, "hot cells", f64=True))
     # timed with bf16 terms at the fine and the coarse query's N (4096 rays
     # x 64 samples), f32 and bf16 cotangents
     V, H, W, C = 3, 128, 128, 64
@@ -777,12 +924,14 @@ def k1_at_step_points(dev, captured, step="zju") -> dict:
     """K1 at the (xy, cotangent) of one training step's two calls (coarse
     and fine query) of the `step` named: the points' spread on the map, K1
     against its plain version with the cotangent as the step hands it over
-    and widened to f32, and K1's time on both. Returns the fine query's
-    kernels-line numbers and the step's K1 time (the two launches
-    summed)."""
+    and widened to f32, and K1's time on both; with the cotangent as the
+    step hands it over, K1 against the earlier design on the same inputs
+    (at most K1_TIME_RATIO_BOUND of its time, the two launches summed).
+    Returns the fine query's kernels-line numbers and the step's K1 time
+    (the two launches summed)."""
     from keypointnerf_torch.ops import onehot_dmap as k1
 
-    out, errs, step_ms = {}, [], 0.0
+    out, errs, step_ms, pair = {}, [], 0.0, [0.0, 0.0]
     for (xy, g, H, W, dt), what in zip(sorted(captured, key=lambda c: c[0].shape[1]),
                                        ("coarse", "fine")):
         xy, g = xy.to(dev), g.to(dev)
@@ -800,13 +949,88 @@ def k1_at_step_points(dev, captured, step="zju") -> dict:
                   f"{t['bound_ms']:.4f} ms ({t['bound_by']}, {t['n_bytes']} bytes)", flush=True)
             if gg is g:
                 step_ms += t["ms"]
+                vs = time_k1_against_atomic(k1, xy, g, H, W, dt)
+                pair[0] += vs["ms"]
+                pair[1] += vs["atomic_ms"]
+                print(f"K1 against the earlier design (float atomics) at the step's {what} "
+                      f"query, in turns (earlier, K1, K1, earlier) {[round(x, 4) for x in vs['turns']]} "
+                      f"ms: K1 {vs['ms']:.4f}, earlier {vs['atomic_ms']:.4f} ms "
+                      f"({vs['ms'] / vs['atomic_ms']:.3f}x); the earlier design's passes (device) "
+                      f"{ {k: round(v, 5) for k, v in vs['atomic_passes'].items()} }; bound "
+                      f"{t['bound_ms']:.4f} ms", flush=True)
                 if what == "fine":
                     plain_ms, library_ms = k1_yardsticks(k1, xy, g, H, W, dt, "the step's points")
                     out = {"ms": t["ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                            "plain_ms": plain_ms, "library_ms": library_ms}
+    ratio = pair[0] / pair[1]
     print(f"K1 a {step} training step (coarse + fine launch, as the step runs them): "
-          f"{step_ms:.4f} ms", flush=True)
-    return dict(out, max_abs_err=max(errs), step_ms=step_ms)
+          f"{step_ms:.4f} ms; in turns with the earlier design {pair[0]:.4f} against "
+          f"{pair[1]:.4f} ms = {ratio:.3f}x (bound {K1_TIME_RATIO_BOUND}x)", flush=True)
+    if not ratio <= K1_TIME_RATIO_BOUND:
+        raise SystemExit(f"K1 takes {ratio:.3f}x the earlier design's time at the {step} "
+                         f"step's points (bound {K1_TIME_RATIO_BOUND}x)")
+    return dict(out, max_abs_err=max(errs), step_ms=step_ms, atomic_step_ms=pair[1],
+                vs_atomic=ratio)
+
+
+def k1_capture(into, limit):
+    """Keep host copies of the inputs of the next `limit` K1 calls, as (xy,
+    g, H, W, map dtype), in `into` (the backward looks the wrapper up in its
+    module at each call; host copies leave the device's peak memory as it
+    is); returns the function that puts the wrapper back."""
+    from keypointnerf_torch.ops import onehot_dmap as k1_module
+
+    k1 = k1_module.multiview_dmap_onehot
+
+    def capturing(xy, g, H, W, map_dtype=torch.bfloat16):
+        if len(into) < limit:
+            into.append((xy.cpu(), g.cpu(), H, W, map_dtype))
+        return k1(xy, g, H, W, map_dtype)
+
+    # the wrapper counts its launches on the module's name for it
+    capturing.launches = 0
+    k1_module.multiview_dmap_onehot = capturing
+
+    def restore():
+        k1_module.multiview_dmap_onehot = k1
+
+    return restore
+
+
+def k1_calls(dev, captured, step) -> dict:
+    """K1 at every captured call of one `step` (its maps' gradients, as the
+    step hands them over): K1 against its plain version and two launches
+    bit-equal (check_k1), K1's time by CUDA events and its bound, beside
+    the time of what the parent ran for that map with torch's defaults:
+    the earlier K1 (yardsticks/onehot_dmap_atomic.cu) for the widest map,
+    the one the Pallas kernel served (main_map_calls), and the plain
+    version (index_add_ with float atomics) for the others. Returns the
+    max abs error and the step's K1 and parent times, summed."""
+    from keypointnerf_torch.ops import onehot_dmap as k1
+
+    widest = max(g.shape[2] for _, g, _, _, _ in captured)
+    errs, ours, parents = [], 0.0, 0.0
+    for xy, g, H, W, dt in sorted(captured, key=lambda c: (c[1].shape[2], c[2], c[1].shape[1])):
+        xy, g = xy.to(dev), g.to(dev)
+        V, N, C = g.shape
+        errs.append(check_k1(k1, xy, g, H, W, dt, f"{step} step, {H}x{W}x{C} map"))
+        ms = cuda_ms(lambda: k1.multiview_dmap_onehot(xy, g, H, W, dt), iters=20)
+        if C == widest:
+            how = "the earlier K1"
+            parent = cuda_ms(lambda: atomic_k1(xy, g, H, W, dt), iters=20)
+        else:
+            how = "the plain version (index_add_)"
+            parent = cuda_ms(lambda: k1.onehot_dmap_plain(xy, g, H, W, dt), iters=20)
+        b = k1_bound(V, N, H, W, C, g.element_size())
+        print(f"K1 at the {step} step's {V}x{H}x{W}x{C} map (N={N}, cotangent "
+              f"{str(g.dtype)[6:]}; {cell_spread(xy, H, W)}): {ms:.4f} ms by events, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}); the parent ran {how}: {parent:.4f} ms",
+              flush=True)
+        ours += ms
+        parents += parent
+    print(f"K1 a {step} step, all {len(captured)} launches: {ours:.4f} ms; what the parent ran "
+          f"for the same maps: {parents:.4f} ms ({ours / parents:.3f}x)", flush=True)
+    return dict(max_abs_err=max(errs), ms=ours, parent_ms=parents)
 
 
 GEO_DIMS1, GEO_DIMS2, GEO_SKIP = (168, 128, 128, 120, 64), (128, 64, 64, 2), (64, 8)
@@ -1428,6 +1652,56 @@ def profile_kernels(fn, top):
     return total
 
 
+def aten_device_ms(fn) -> dict:
+    """fn() under the profiler: each aten op's device time (its kernels', ms)
+    and calls, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: ((getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
+                    / 1e3, e.count)
+            for e in prof.key_averages() if e.key.startswith("aten::")}
+
+
+def render_after_training_mode(model, render, out, n_rays) -> None:
+    """The render again after the process has entered and left training's
+    deterministic mode (device.deterministic_training, the context of every
+    training step): the mode as the encoders and the queries see it (off:
+    torch's defaults), the render bit-equal to `out`, and its rays/s."""
+    from keypointnerf_torch.device import deterministic_training
+
+    with deterministic_training():
+        pass
+    seen = []
+
+    def spying(real):
+        def call(*args, **kwargs):
+            seen.append(torch.are_deterministic_algorithms_enabled())
+            return real(*args, **kwargs)
+        return call
+
+    model.encode, model.query_points = spying(model.encode), spying(model.query_points)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = render()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        del model.encode, model.query_points
+    differ = [k for k in out if not torch.equal(out[k], got[k])]
+    print(f"the 512² render after the process entered and left training's deterministic mode: "
+          f"{seconds:.4f} s = {n_rays / seconds:.1f} rays/s; deterministic algorithms on in "
+          f"{sum(seen)} of its {len(seen)} encoder and query calls; bit-equal to the first "
+          f"render {not differ}", flush=True)
+    if any(seen) or not seen:
+        raise SystemExit("the renderer ran in training's deterministic mode")
+    if differ:
+        raise SystemExit(f"the 512² render after training's mode differs in {differ}")
+
+
 def render_full_width(dev):
     """The strict 512² camera with the flag off; returns K2's launch count
     and what the flag-on render reuses (model, batch, image)."""
@@ -1485,6 +1759,7 @@ def render_full_width(dev):
     print(f"dot_f32 forms, same render: earlier bf16-sum product {timed['earlier']:.4f} s = "
           f"{size2 / timed['earlier']:.1f} rays/s; current (f32 sum, torch.mm out_dtype) "
           f"{timed['current']:.4f} s = {size2 / timed['current']:.1f} rays/s", flush=True)
+    render_after_training_mode(model, render, out, size2)
 
     n_rays = size * size
     marched = max(1, min(n_rays, -int(-n_rays * cfg.cull_empty_rays_ratio // 1)))
@@ -2222,6 +2497,23 @@ def agreement_small(dev, radiance_bias=0.0, **overrides) -> None:
         raise SystemExit("card render disagrees with the CPU render")
 
 
+def k1_per_step(cfg) -> int:
+    """K1's launches in one training step of `cfg` (on the card every map
+    gradient of the matmul-VJP lookups is K1's): each query's lookups (the
+    fused map; or the coarse map, the hd map's prefix and the texture map),
+    for the coarse and the fine query, and with the fused map the two
+    upsampling lookups that build it in training."""
+    return 2 + 2 if cfg.fused_feature_map else 2 * 3
+
+
+def main_map_calls(captured):
+    """The captured K1 calls of the map the Pallas kernel served in the
+    JAX step (the coarse geometry map, or the fused map): the widest ones,
+    one a query."""
+    widest = max(g.shape[2] for _, g, _, _, _ in captured)
+    return [c for c in captured if c[1].shape[2] == widest]
+
+
 def zju_config(**overrides):
     """KeypointNeRFConfig of configs/zju.json's "model" section, read by the
     port's load_config."""
@@ -2238,7 +2530,8 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
     (s/step, peak memory, kernel time, the first step's loss terms), with
     `capture_k1` the inputs of the first step's K1 calls (host copies, as
     (xy, g, H, W, map dtype)) and with `capture_grads` the first step's
-    gradients (host copies, by parameter name)."""
+    gradients (host copies, by parameter name) and the parameters after
+    its update (host copies, in order)."""
     from keypointnerf_torch.data import SyntheticConfig, make_sample
     from keypointnerf_torch.models import KeypointNeRF, VGG19Features, ViewBatch
     from keypointnerf_torch.ops import multiview_dmap_onehot as k1
@@ -2277,33 +2570,23 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
     t0 = time.perf_counter()
     # the first step starts from the seeded weights and draws: its numbers
     # are comparable between runs with other flags
-    k1_inputs, grads = [], {}
+    k1_inputs, grads, updated = [], {}, []
     apply = train_module.apply_gradients
-    if capture_k1:
-        # the backward looks K1 up in its module at each call
-        from keypointnerf_torch.ops import onehot_dmap as k1_module
-
-        def capturing(xy, g, H, W, map_dtype=torch.bfloat16):
-            # kept on the host, so the timed steps' peak memory is unchanged
-            k1_inputs.append((xy.cpu(), g.cpu(), H, W, map_dtype))
-            return k1(xy, g, H, W, map_dtype)
-
-        # the wrapper counts its launches on the module's name for it
-        capturing.launches = 0
-        k1_module.multiview_dmap_onehot = capturing
+    restore_k1 = k1_capture(k1_inputs, k1_per_step(cfg)) if capture_k1 else None
     if capture_grads:
         names = [n for n, _ in model.named_parameters()]
 
         def keeping(st, params, gs):
             grads.update((n, g.cpu()) for n, g in zip(names, gs))
             apply(st, params, gs)
+            updated.extend(p.detach().cpu() for p in params)
 
         train_module.apply_gradients = keeping
     try:
         first = {k: v.item() for k, v in step().items()}
     finally:
-        if capture_k1:
-            k1_module.multiview_dmap_onehot = k1
+        if restore_k1:
+            restore_k1()
         train_module.apply_gradients = apply
     for _ in range(warmup - 1):
         step()
@@ -2328,8 +2611,9 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
               f"terms={ {k: round(v, 6) for k, v in errs[-1].items()} }; "
               f"K1 launches {launches['onehot_dmap']}, K2 {launches['onehot_bilinear']}, "
               f"K4 {launches['fused_geo_mlp']}, K5 {launches['sp_fused_geo_mlp']}", flush=True)
-        if launches["onehot_dmap"] != 2:
-            raise SystemExit("K1 must run twice a step (coarse and fine query)")
+        if launches["onehot_dmap"] != k1_per_step(cfg):
+            raise SystemExit(f"K1 must run {k1_per_step(cfg)} times a step: every map "
+                             f"gradient of the coarse and the fine query")
         if launches["sp_fused_geo_mlp"] != k5_want or launches["fused_geo_mlp"]:
             raise SystemExit("K5 must run twice a step with the flag on, never with it off")
         if launches["onehot_bilinear"]:
@@ -2366,7 +2650,195 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
           f"takes unprofiled: the device idles {1 - device_ms / (seconds * 1e3):.3f} of the "
           f"step", flush=True)
     return dict(launches, s_per_step=seconds, peak_bytes=peak, device_ms=device_ms, first=first,
-                k1_inputs=k1_inputs, grads=grads)
+                k1_inputs=k1_inputs, grads=grads, params=updated)
+
+
+def same_first_step(ref, run, what) -> None:
+    """`run`'s first step bit for bit `ref`'s (the same program, weights,
+    batch and draws): every loss term and grad_norm, every gradient leaf
+    and every parameter after the update `torch.equal`."""
+    terms = [k for k, v in ref["first"].items() if run["first"][k] != v]
+    leaves = [n for n, g in ref["grads"].items() if not torch.equal(g, run["grads"][n])]
+    params = [i for i, (a, b) in enumerate(zip(ref["params"], run["params"]))
+              if not torch.equal(a, b)]
+    print(f"{what}, first step against the first run's: loss terms and grad_norm equal "
+          f"{not terms} {run['first']}; {len(ref['grads']) - len(leaves)} of "
+          f"{len(ref['grads'])} gradient leaves bit-equal; {len(ref['params']) - len(params)} of "
+          f"{len(ref['params'])} parameters bit-equal after the update", flush=True)
+    if (terms or leaves or params or len(ref["params"]) != len(run["params"])
+            or not ref["params"]):
+        raise SystemExit(f"{what} is not bit-equal to the first run: terms {terms}, gradient "
+                         f"leaves {leaves[:5]}, parameters {params[:5]}")
+
+
+def mode_state() -> dict:
+    """The deterministic mode as the process is in it now."""
+    return dict(deterministic=torch.are_deterministic_algorithms_enabled(),
+                warn_only=torch.is_deterministic_algorithms_warn_only_enabled(),
+                cudnn_deterministic=torch.backends.cudnn.deterministic,
+                cudnn_benchmark=torch.backends.cudnn.benchmark,
+                CUBLAS_WORKSPACE_CONFIG=os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+
+
+STRICT_MODE = dict(deterministic=True, warn_only=False, cudnn_deterministic=True,
+                   cudnn_benchmark=False, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+
+
+def steps_in_turns(fns, turns=4, per_turn=3) -> dict:
+    """Each of `fns` (name -> one step) run `per_turn` steps at a time in
+    `turns` turns, the order reversed every other turn (a, b, b, a, ...),
+    after two warm-up steps each; the median of each one's per-turn
+    s/step."""
+    names = list(fns)
+    for name in names:
+        for _ in range(2):
+            fns[name]()
+    times = {name: [] for name in names}
+    for turn in range(turns):
+        for name in names if turn % 2 == 0 else names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(per_turn):
+                fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) / per_turn)
+    return {name: (float(np.median(t)), t) for name, t in times.items()}
+
+
+# the zju step in deterministic mode against the same step with torch's
+# defaults (training.train.step_without_mode), in turns on one model in one
+# call: the mode may cost at most 10% of the step, by the median wall clock
+# of the turns and by kernel time, plus what torch's sorted index_put_ costs
+# more in the mode (the formulation PERF.md names for the ops that have no
+# other; the encoders' replication padding, which took it, no longer does).
+# Readings on an NVIDIA H100 80GB HBM3 (700 W), wall clock / kernel time:
+# 0.983x / 0.986x, 1.021x / 0.998x; before the padding's own backward, from
+# separate runs, kernel time 1.062-1.090x, wall clock 1.030x and 1.147x
+DETERMINISTIC_COST_BOUND = 1.10
+DETERMINISTIC_COST_OPS = ("aten::index_put_", "aten::_index_put_impl_", "aten::index_put",
+                          "aten::_unsafe_index_put")
+
+
+def deterministic_cost(dev) -> dict:
+    """The zju step (the recipe of train_full_width, one batch and one set
+    of draws) in deterministic mode and with torch's defaults, in turns:
+    median s/step of each, kernel time of one step of each, and the aten
+    ops that cost more in the mode."""
+    from keypointnerf_torch.training import TrainDraws, create_train_state, train_step_fn
+    from keypointnerf_torch.training.train import step_without_mode
+
+    cfg, model, vgg, recipe = zju_step_parts(dev)
+    state = create_train_state(model, recipe.optim, vgg)
+    vb = rig_sample(dev, 0)
+    draws = TrainDraws.sample(cfg, vb, torch.Generator(device=dev).manual_seed(0))
+    fns = {"deterministic": lambda: train_step_fn(model, recipe.loss, state, vb, draws),
+           "defaults": lambda: step_without_mode(model, recipe.loss, state, [vb], [draws])}
+    turns = steps_in_turns(fns)
+    (det_s, det_t), (free_s, free_t) = turns["deterministic"], turns["defaults"]
+    print("one step in deterministic mode:", flush=True)
+    det_ms = profile_kernels(fns["deterministic"], 10)
+    print("one step with torch's defaults:", flush=True)
+    free_ms = profile_kernels(fns["defaults"], 10)
+    det_ops, free_ops = aten_device_ms(fns["deterministic"]), aten_device_ms(fns["defaults"])
+    ops = {k: (det_ops.get(k, (0.0, 0)), free_ops.get(k, (0.0, 0)))
+           for k in set(det_ops) | set(free_ops)}
+    dearer = sorted(ops.items(), key=lambda kv: kv[1][1][0] - kv[1][0][0])[:8]
+    print("aten ops that cost more in deterministic mode (one step; device ms and calls, "
+          "deterministic against defaults): " + "; ".join(
+              f"{k} {a[0]:.3f} ({a[1]}) vs {b[0]:.3f} ({b[1]})" for k, (a, b) in dearer),
+          flush=True)
+    # the family's ops nest (index_put calls _index_put_impl_): the largest
+    # is the family's extra time
+    sorted_extra = max((max(0.0, ops[k][0][0] - ops[k][1][0])
+                        for k in DETERMINISTIC_COST_OPS if k in ops), default=0.0)
+    wall_ok = det_s <= DETERMINISTIC_COST_BOUND * free_s + sorted_extra / 1e3
+    kernel_ok = det_ms <= DETERMINISTIC_COST_BOUND * free_ms + sorted_extra
+    print(f"zju step in deterministic mode {det_s:.4f} s/step (median of turns "
+          f"{[round(x, 4) for x in det_t]}), kernel time {det_ms:.3f} ms; with torch's defaults "
+          f"{free_s:.4f} s/step ({[round(x, 4) for x in free_t]}), {free_ms:.3f} ms: "
+          f"{det_s / free_s:.3f}x the wall clock, {det_ms / free_ms:.3f}x the kernel time "
+          f"(bound {DETERMINISTIC_COST_BOUND}x plus the sorted index_put_'s extra "
+          f"{sorted_extra:.3f} ms) {'ok' if wall_ok and kernel_ok else 'FAIL'}", flush=True)
+    if not (wall_ok and kernel_ok):
+        raise SystemExit(f"the zju step in deterministic mode takes {det_s / free_s:.3f}x the "
+                         f"wall clock and {det_ms / free_ms:.3f}x the kernel time of torch's "
+                         f"defaults (bound {DETERMINISTIC_COST_BOUND}x + {sorted_extra:.3f} ms)")
+    return dict(det_s=det_s, free_s=free_s, det_ms=det_ms, free_ms=free_ms,
+                sorted_extra_ms=sorted_extra)
+
+
+def strict_mode_step(dev) -> None:
+    """One zju step as the training path runs it, checked to run in strict
+    deterministic mode (read in its forward): torch's deterministic
+    algorithms with no warn-only (an op without a deterministic
+    implementation raises, and nothing here catches it), cuDNN
+    deterministic without autotuning, and CUBLAS_WORKSPACE_CONFIG as this
+    process saw it; and the process back in torch's defaults after it."""
+    from keypointnerf_torch.training import TrainDraws, create_train_state, train_step_fn
+
+    cfg, model, vgg, recipe = zju_step_parts(dev)
+    state = create_train_state(model, recipe.optim, vgg)
+    vb = rig_sample(dev, 0)
+    draws = TrainDraws.sample(cfg, vb, torch.Generator(device=dev).manual_seed(0))
+    seen = []
+    hook = model.register_forward_pre_hook(lambda module, args: seen.append(mode_state()))
+    try:
+        err = train_step_fn(model, recipe.loss, state, vb, draws)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    after = mode_state()
+    print(f"zju step in strict deterministic mode, no op raised (e_all "
+          f"{err['e_all'].item():.6f}); the mode in its forward: {seen}; after it: {after}",
+          flush=True)
+    if seen != [STRICT_MODE]:
+        raise SystemExit(f"the training step did not run in strict deterministic mode: {seen}")
+    if after["deterministic"] or after["cudnn_deterministic"]:
+        raise SystemExit(f"the training step left the process in deterministic mode: {after}")
+
+
+def check_replication_pad(dev) -> None:
+    """The encoders' replication padding (models/cnn.ReplicationPad2d) at
+    the texture encoder's bf16 shapes of the zju step: its output equal to
+    torch's padding, its gradient bit-equal to that of the formulation
+    torch takes in deterministic mode (`_replication_pad`, a sorting
+    index_put_ in its backward); the backward's time beside that one's and
+    torch's own (atomics, outside the mode)."""
+    from torch._decomp.decompositions import _replication_pad
+
+    from keypointnerf_torch.device import deterministic_training
+    from keypointnerf_torch.models.cnn import ReplicationPad2d
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for shape, pad in (((3, 512, 64, 64), 1), ((3, 128, 256, 256), 3)):
+        x = torch.randn(shape, device=dev, generator=gen).bfloat16()
+        padded = [s + 2 * pad for s in shape[2:]]
+        g = torch.randn((*shape[:2], *padded), device=dev, generator=gen).bfloat16()
+        ours = x.clone().requires_grad_(True)
+        y = ReplicationPad2d(pad)(ours)
+        y.backward(g)
+        with deterministic_training():
+            theirs = x.clone().requires_grad_(True)
+            _replication_pad(theirs, (pad,) * 4).backward(g)
+        same_fwd = torch.equal(y, torch.nn.functional.pad(x, (pad,) * 4, mode="replicate"))
+        same = torch.equal(ours.grad, theirs.grad)
+
+        def fwd_bwd(fn):
+            xx = x.clone().requires_grad_(True)
+            return lambda: torch.autograd.grad(fn(xx), xx, g)
+
+        ours_ms = cuda_ms(fwd_bwd(ReplicationPad2d(pad)), iters=10)
+        with deterministic_training():
+            sorted_ms = cuda_ms(fwd_bwd(lambda t: _replication_pad(t, (pad,) * 4)), iters=10)
+        atomic_ms = cuda_ms(fwd_bwd(lambda t: torch.nn.functional.pad(t, (pad,) * 4,
+                                                                       mode="replicate")),
+                            iters=10)
+        print(f"replication padding {tuple(shape)} by {pad} (bf16): output equal to torch's "
+              f"{same_fwd}, gradient bit-equal to the mode's formulation {same}; forward + "
+              f"backward {ours_ms:.4f} ms, the mode's formulation (sorted index_put_) "
+              f"{sorted_ms:.4f} ms, torch's own (atomics) {atomic_ms:.4f} ms", flush=True)
+        if not (same_fwd and same):
+            raise SystemExit("the encoders' replication padding differs from torch's")
 
 
 # The first full-width step with the flag on against the one with it off:
@@ -2374,16 +2846,13 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
 # encoding at other places and take sin / cos another way (see the render
 # bounds above). With seeded random weights the rendered patch is almost
 # black, so the loss terms hardly feel it (a few f32 ulps); the gradient
-# norm does, and it also moves from run to run of one program: float
-# atomics (K1's cell runs, index_add_, cuDNN's weight gradients) sum in
-# another order each time, and the bf16 backward carries that into every
-# leaf. In three calls of this script on an NVIDIA H100 80GB HBM3 (700 W)
-# the flag-off step's first grad_norm read 0.5728284, 0.5734748 and
-# 0.5733165 (1.1e-3 apart), and flag on against off 4.8e-4, 1.75e-3 and
-# 6.4e-4: the earlier bound of 1.5e-3 (one reading, 5.79e-4, doubled)
-# failed at random. The bounds are relative, measured and about doubled.
-FUSED_STEP_LOSS_BOUND = 2e-6         # measured 6.24e-7 (e_pix_l1)
-FUSED_STEP_GRAD_NORM_BOUND = 3.5e-3  # measured up to 1.75e-3
+# norm does. Each program is deterministic, so the difference is one
+# reading, not a spread (before the step was deterministic, float atomics
+# moved the flag-off step's grad_norm by 1.1e-3 between runs and the bounds
+# were 2e-6 and 3.5e-3). Readings on an NVIDIA H100 80GB HBM3 (700 W),
+# about doubled; relative:
+FUSED_STEP_LOSS_BOUND = 1e-6         # measured 3.12e-7 (e_pix_l1)
+FUSED_STEP_GRAD_NORM_BOUND = 1.75e-3  # measured 8.62e-4
 
 
 def compare_first_steps(off, on) -> None:
@@ -2397,29 +2866,26 @@ def compare_first_steps(off, on) -> None:
         raise SystemExit("the flag-on training step deviates from the flag-off step")
 
 
-# The first full-width zju step with remat (or remat_save_gathers) against
-# the one without: the same weights, draws and batch, the same operations.
-# The recompute changes no forward value, so the loss terms agree exactly;
-# the gradients differ by the order of float atomics (K1's cell runs, the
-# plain map gradient's index_add_, cuDNN's weight gradients), which the bf16
-# backward carries into every leaf: three more remat-off runs measure that
-# floor and are held to the same bounds. Gradients are held by the relative
-# L2 distance of the whole gradient, grad_norm, and the worst leaf among
-# those whose largest entry is at least 1e-3 of the top one (below that, a
-# leaf is the rounding noise of a bias feeding a norm). Bounds: this
-# script's readings on an NVIDIA H100 80GB HBM3 (700 W), about doubled;
-# grad_norm's from the flag-off runs' spread across calls (1.1e-3, above).
-# Readings (remat, remat_save_gathers; the three remat-off runs):
-REMAT_LOSS_BOUND = 0.0          # all 0
-REMAT_GRAD_L2_BOUND = 7e-3      # 3.08e-3, 2.89e-3; 3.51e-3, 3.25e-3, 3.18e-3
-REMAT_GRAD_NORM_BOUND = 2.5e-3  # 2.7e-4, 4.3e-5; 4.0e-4, 5.2e-5, 1.1e-4
-REMAT_LEAF_BOUND = 3.5e-2       # 1.37e-2, 1.62e-2; 1.23e-2, 1.57e-2, 1.37e-2
+# The first zju step of two ranks (local batch 1, gloo on one card) against
+# one process on their global batch of 2: the same weights, draws and
+# samples, another program (each rank's gradient all-reduced and halved,
+# against autograd's sum of the two samples' halves), so the last bits of
+# some leaves differ, the same in every run. Gradients are held by the
+# relative L2 distance of the whole gradient, grad_norm, and the worst leaf
+# among those whose largest entry is at least 1e-3 of the top one (below
+# that, a leaf is the rounding noise of a bias feeding a norm). Readings on
+# an NVIDIA H100 80GB HBM3 (700 W), about doubled, with an f32 ulp's room
+# where the reading is 0 (before the step was deterministic these bounds,
+# shared with remat, were 0.0, 7e-3, 2.5e-3 and 3.5e-2):
+TWO_RANK_LOSS_BOUND = 0.0           # measured 0 (loss terms bit-equal)
+TWO_RANK_GRAD_L2_BOUND = 3e-8       # measured 1.29e-8 (230 of 248 leaves bit-equal)
+TWO_RANK_GRAD_NORM_BOUND = 1.2e-7   # measured 0
+TWO_RANK_LEAF_BOUND = 2e-7          # measured 8.80e-8
 
 
-def compare_first_step_grads(off, run, what, loss_bound=REMAT_LOSS_BOUND) -> None:
+def compare_first_step_grads(off, run, what) -> None:
     """`run`'s first step (loss terms, the gradient) against the reference
-    run `off`'s (remat off, or one process), and their peak memory and
-    s/step."""
+    run `off`'s (one process), by the TWO_RANK bounds."""
     loss = max(abs(run["first"][k] - v) / max(abs(v), 1e-12)
                for k, v in off["first"].items() if k != "grad_norm")
     top = max(g.abs().max().item() for g in off["grads"].values())
@@ -2437,18 +2903,16 @@ def compare_first_step_grads(off, run, what, loss_bound=REMAT_LOSS_BOUND) -> Non
     l2 = math.sqrt(num / den)
     gn = abs(run["first"]["grad_norm"] - off["first"]["grad_norm"]) / off["first"]["grad_norm"]
     worst = max(rows)[0]
+    same = sum(int(torch.equal(b, run["grads"][n])) for n, b in off["grads"].items())
+    print(f"first zju step, {what} vs the reference run: {same} of {len(off['grads'])} gradient "
+          f"leaves bit-equal, loss terms equal {run['first'] == off['first']}", flush=True)
     print(f"first zju step, {what} vs the reference run: loss terms {loss:.3e} relative "
-          f"(bound {loss_bound}); gradient relative L2 {l2:.3e} (bound {REMAT_GRAD_L2_BOUND}), "
-          f"grad_norm {gn:.3e} (bound {REMAT_GRAD_NORM_BOUND}), worst of {len(rows)} leaves "
-          f"{worst:.3e} of its max (bound {REMAT_LEAF_BOUND}): "
+          f"(bound {TWO_RANK_LOSS_BOUND}); gradient relative L2 {l2:.3e} (bound "
+          f"{TWO_RANK_GRAD_L2_BOUND}), grad_norm {gn:.3e} (bound {TWO_RANK_GRAD_NORM_BOUND}), "
+          f"worst of {len(rows)} leaves {worst:.3e} of its max (bound {TWO_RANK_LEAF_BOUND}): "
           f"{[(f'{r:.2e}', n) for r, n in sorted(rows, reverse=True)[:3]]}", flush=True)
-    if "device_ms" in run:
-        print(f"{what}: {run['s_per_step']:.4f} s/step, peak {run['peak_bytes']} bytes "
-              f"({run['peak_bytes'] / 2**30:.2f} GiB), {run['device_ms']:.3f} ms of kernel "
-              f"time; remat off {off['s_per_step']:.4f} s/step, {off['peak_bytes']} bytes "
-              f"({off['peak_bytes'] / 2**30:.2f} GiB), {off['device_ms']:.3f} ms", flush=True)
-    if not (loss <= loss_bound and l2 <= REMAT_GRAD_L2_BOUND
-            and gn <= REMAT_GRAD_NORM_BOUND and worst <= REMAT_LEAF_BOUND):
+    if not (loss <= TWO_RANK_LOSS_BOUND and l2 <= TWO_RANK_GRAD_L2_BOUND
+            and gn <= TWO_RANK_GRAD_NORM_BOUND and worst <= TWO_RANK_LEAF_BOUND):
         raise SystemExit(f"{what} deviates from the reference step")
 
 
@@ -3025,8 +3489,7 @@ def one_rank_nccl_step(dev) -> None:
     """The zju step at full width in a one-rank NCCL group: the gradients
     and loss terms after the all-reduce are bit-equal to the step's own
     (the reduction is the identity), and the parameters to those of the
-    update made without a group from the same gradients (two runs of the
-    bf16 step differ by float atomics, so the same backward is compared);
+    update made without a group from the same gradients;
     then s/step with and without the group."""
     import torch.distributed as dist
 
@@ -3080,7 +3543,7 @@ def one_rank_nccl_step(dev) -> None:
                 "loss_terms": {"op": "all_reduce", "calls": 1, "bytes": 16}}
         if not (grads_equal and terms_equal and norm_equal and params_equal):
             raise SystemExit("the one-rank NCCL step differs from the step without a group")
-        if inv != want or k1.launches != 2:
+        if inv != want or k1.launches != k1_per_step(cfg):
             raise SystemExit("the one-rank step's collectives or K1 launches are not the "
                              "expected ones")
         times = {}
@@ -3102,7 +3565,8 @@ def one_rank_nccl_step(dev) -> None:
 def global_batch_step(dev) -> dict:
     """The first zju step of one process on the global batch of the two
     ranks' samples (rig seeds 0 and 1), draws by slot from the step's
-    generator: loss terms, the gradient (host, by name), s/step, peak."""
+    generator: loss terms, the gradient (host, by name), the parameters
+    after the update (host), s/step, peak."""
     from keypointnerf_torch.parallel import slot_draws
     from keypointnerf_torch.training import create_train_state, step_generator, train_batch_step_fn
     from keypointnerf_torch.training import train as train_module
@@ -3112,12 +3576,13 @@ def global_batch_step(dev) -> dict:
     batch = [rig_sample(dev, 0), rig_sample(dev, 1)]
     draws = slot_draws(cfg, batch, step_generator(0, 0, dev), 2, 0)
     names = [n for n, _ in model.named_parameters()]
-    grads = {}
+    grads, updated = {}, []
     apply = train_module.apply_gradients
 
     def keeping(st, params, gs):
         grads.update((n, g.cpu()) for n, g in zip(names, gs))
         apply(st, params, gs)
+        updated.extend(p.detach().cpu() for p in params)
 
     train_module.apply_gradients = keeping
     torch.cuda.reset_peak_memory_stats()
@@ -3129,8 +3594,8 @@ def global_batch_step(dev) -> dict:
         train_module.apply_gradients = apply
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return dict(first={k: v.item() for k, v in err.items()}, grads=grads, s_per_step=seconds,
-                peak_bytes=torch.cuda.max_memory_allocated())
+    return dict(first={k: v.item() for k, v in err.items()}, grads=grads, params=updated,
+                s_per_step=seconds, peak_bytes=torch.cuda.max_memory_allocated())
 
 
 def rank_steps(dev, group, r, world) -> dict:
@@ -3324,7 +3789,7 @@ def parallel_rank(r, world, port, backend, out_dir) -> None:
 
 def parallel_phase(dev) -> dict:
     """The data-parallel paths on the card: the one-rank NCCL step, the
-    one-process global-batch step (twice: the atomics' floor), then two
+    one-process global-batch step (twice, bit for bit), then two
     ranks (gloo on one card, chosen here and printed; NCCL on two cards
     where there are two) running the step, the sharded render, the
     Trainer and the sharded eval, each held against one process."""
@@ -3338,10 +3803,10 @@ def parallel_phase(dev) -> dict:
     phase("parallel: the zju step in a one-rank NCCL group")
     one_rank_nccl_step(dev)
     torch.cuda.empty_cache()
-    phase("parallel: one process at global batch 2, twice (the atomics' floor)")
+    phase("parallel: one process at global batch 2, twice, bit for bit")
     ref = global_batch_step(dev)
     again = global_batch_step(dev)
-    compare_first_step_grads(ref, again, "the global-batch step again")
+    same_first_step(ref, again, "the one-process global-batch-2 step, run 2")
     print(f"one process, global batch 2: {ref['s_per_step']:.4f} s (first step), peak "
           f"{ref['peak_bytes']} bytes ({ref['peak_bytes'] / 2**30:.2f} GiB)", flush=True)
     del again
@@ -3390,8 +3855,9 @@ def parallel_phase(dev) -> dict:
         if any(s["inventory"] != want for s in st["steps"]):
             raise SystemExit("a data-parallel step's collectives are not one gradient "
                              "all-reduce of the parameter bytes and one of the loss terms")
-        if any(s["k1"] != 2 for s in st["steps"]):
-            raise SystemExit("K1 must run twice a sample on each rank")
+        if any(s["k1"] != k1_per_step(zju_config()) for s in st["steps"]):
+            raise SystemExit(f"K1 must run {k1_per_step(zju_config())} times a sample on "
+                             f"each rank")
         if not all(math.isfinite(v) for s in st["steps"] for v in s["terms"].values()):
             raise SystemExit("a data-parallel step's loss is not finite")
     same = [a["digest"] == b["digest"] and a["terms"] == b["terms"]
@@ -3404,8 +3870,7 @@ def parallel_phase(dev) -> dict:
                s_per_step=steps[0]["steps"][0]["seconds"], peak_bytes=steps[0]["peak_bytes"])
     # the loss terms: each rank's mean all-reduced and halved, against the
     # mean of the two in one process (the same sum, in another program)
-    compare_first_step_grads(ref, two, "the two-rank step (local batch 1)",
-                             loss_bound=FUSED_STEP_LOSS_BOUND)
+    compare_first_step_grads(ref, two, "the two-rank step (local batch 1)")
     del ref, two
 
     # the render
@@ -3475,11 +3940,78 @@ GATE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_gate"
 GATE_STEPS, GATE_CHUNK = 150, 50
 
 
+GATE_REPEAT_STEPS = 20
+
+
+def gate_steps_twice(dev) -> dict:
+    """The gate's training (quality_gate.train_gate at gate geometry, its
+    seed, model, optimizer and draws as its main() makes them) for
+    GATE_REPEAT_STEPS steps, twice from the start: the chunk's readings
+    (last loss, largest grad norm and its step) and every parameter after
+    the steps bit-equal. Then K1 at every call of the first run's first
+    step (k1_calls), and the gate's step in deterministic mode against the
+    same step with torch's defaults, in turns: what the mode and what K1
+    (against what the parent ran for the same maps) add to a gate step.
+    Returns K1's numbers."""
+    from keypointnerf_torch import quality_gate as qg
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.models import KeypointNeRF, ViewBatch
+    from keypointnerf_torch.training import (LossConfig, OptimConfig, TrainDraws,
+                                             create_train_state, patch_pool, step_generator,
+                                             train_step_fn)
+    from keypointnerf_torch.training.train import step_without_mode
+
+    args = qg.create_parser().parse_args([])
+    scfg = SyntheticConfig(image_size=qg.IMAGE, n_views=4)
+    stack = qg.stack_samples([make_sample(scfg, seed=i) for i in range(qg.N_TRAIN)], dev)
+    pools = [patch_pool(ViewBatch(**{f: t[i] for f, t in stack.items()}))
+             for i in range(qg.N_TRAIN)]
+    loss_cfg = LossConfig(lambda_vgg=0.0)
+    runs, captured = [], []
+    for i in range(2):
+        model = KeypointNeRF(qg.gate_config(), device=dev, seed=args.seed)
+        state = create_train_state(model, OptimConfig(learning_rate=args.lr))
+        restore = k1_capture(captured, k1_per_step(model.cfg)) if i == 0 else None
+        try:
+            rows = list(qg.train_gate(model, loss_cfg, state, stack, pools, args.seed,
+                                      GATE_REPEAT_STEPS, GATE_REPEAT_STEPS))
+        finally:
+            if restore:
+                restore()
+        runs.append((rows, [p.detach().cpu() for p in model.parameters()]))
+        del model, state
+    (rows_a, params_a), (rows_b, params_b) = runs
+    same = sum(int(torch.equal(a, b)) for a, b in zip(params_a, params_b))
+    print(f"the gate's step, {GATE_REPEAT_STEPS} steps from seed {args.seed} twice: readings "
+          f"{rows_a} and {rows_b}; {same} of {len(params_a)} parameters bit-equal", flush=True)
+    if rows_a != rows_b or same != len(params_a):
+        raise SystemExit("two runs of the gate's steps from one seed differ")
+    if len(captured) != k1_per_step(qg.gate_config()):
+        raise SystemExit(f"captured {len(captured)} K1 calls of a gate step, not "
+                         f"{k1_per_step(qg.gate_config())}")
+    gate_k1 = k1_calls(dev, captured, "gate")
+    model = KeypointNeRF(qg.gate_config(), device=dev, seed=args.seed)
+    state = create_train_state(model, OptimConfig(learning_rate=args.lr))
+    vb = ViewBatch(**{f: t[0] for f, t in stack.items()})
+    draws = TrainDraws.sample(model.cfg, vb, step_generator(args.seed, 0, dev), pool=pools[0])
+    turns = steps_in_turns({
+        "deterministic": lambda: train_step_fn(model, loss_cfg, state, vb, draws),
+        "defaults": lambda: step_without_mode(model, loss_cfg, state, [vb], [draws])})
+    (det_s, det_t), (free_s, free_t) = turns["deterministic"], turns["defaults"]
+    k1_s = (gate_k1["ms"] - gate_k1["parent_ms"]) / 1e3
+    print(f"the gate's step in deterministic mode {det_s:.4f} s/step (median of turns "
+          f"{[round(x, 4) for x in det_t]}), with torch's defaults {free_s:.4f} "
+          f"({[round(x, 4) for x in free_t]}): the mode adds {det_s - free_s:+.4f} s a step "
+          f"({det_s / free_s:.3f}x); K1's {len(captured)} launches add {k1_s:+.6f} s a step "
+          f"against what the parent ran for the same maps", flush=True)
+    return dict(gate_k1, det_s=det_s, free_s=free_s)
+
+
 def gate_phase(dev) -> dict:
     """The port's training-quality gate (`python -m
     keypointnerf_torch.quality_gate`'s main()) at gate geometry for
     GATE_STEPS steps with one evaluation, its run recorded into a file of
-    its own under build/: s/step, K1 launches a step (2), the host's waits
+    its own under build/: s/step, K1 launches a step (6), the host's waits
     in a chunk (1: the chunk's fetch), the loss of the first and last
     chunk, seen / unseen PSNR / SSIM, the fast preset's delta (the gate
     exits 1 on a cull overflow). The training step makes no host sync, so
@@ -3548,15 +4080,16 @@ def gate_phase(dev) -> dict:
     if sum(syncs.values()) != 1:
         raise SystemExit(f"the gate's chunk waited on the device {syncs}: once, its fetch, "
                          "is all it may")
+    want = k1_per_step(qg.gate_config())
     per_step = {c["k1"] / GATE_CHUNK for c in chunks}
-    if per_step != {2.0}:
-        raise SystemExit(f"K1 must run twice a gate step: {per_step}")
+    if per_step != {float(want)}:
+        raise SystemExit(f"K1 must run {want} times a gate step: {per_step}")
     for split in ("seen", "unseen"):
         if not all(math.isfinite(v) for v in res[split].values()):
             raise SystemExit(f"gate: {split} scores not finite: {res[split]}")
     if not all(math.isfinite(c["loss"]) for c in chunks):
         raise SystemExit("gate: a chunk's loss is not finite")
-    return {"k1_per_step": 2}
+    return {"k1_per_step": want}
 
 
 DATA_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
@@ -3661,8 +4194,10 @@ def zju_trainer(root, workers, steps=8) -> dict:
     if trainer.state.step != steps or not finite or len(trainer.train_data) == 0:
         raise SystemExit(f"the ZJU-fed trainer (num_workers={workers}) did not train "
                          f"{steps} finite steps")
-    if launches != 2 * steps:
-        raise SystemExit(f"K1 must run twice a step of the ZJU-fed trainer: {launches}")
+    want = k1_per_step(zju_config()) * steps
+    if launches != want:
+        raise SystemExit(f"K1 must run {want} times in {steps} steps of the ZJU-fed trainer: "
+                         f"{launches}")
     return dict(s_per_step=sum(loop) / 3, host_share=share, out=out, k1=launches)
 
 
@@ -3714,42 +4249,6 @@ def data_phase(dev) -> int:
             any(sh != (512, 512, 3) for sh in shapes):
         raise SystemExit("render_dynamic did not write 2 exact 512² orbit frames")
     return pooled["k1"]
-
-
-def nondeterministic_ops(dev) -> list:
-    """One zju step at full width under
-    torch.use_deterministic_algorithms(True, warn_only=True): the ops torch
-    knows to be nondeterministic, from its warnings. K1's float atomics
-    (onehot_dmap.cu's run ends) are a hand-written kernel outside torch's
-    check and are named beside them."""
-    import warnings
-
-    from keypointnerf_torch.training import TrainDraws, create_train_state, train_step_fn
-
-    cfg, model, vgg, recipe = zju_step_parts(dev)
-    state = create_train_state(model, recipe.optim, vgg)
-    vb = rig_sample(dev, 0)
-    draws = TrainDraws.sample(cfg, vb, torch.Generator(device=dev).manual_seed(0))
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            err = train_step_fn(model, recipe.loss, state, vb, draws)
-            torch.cuda.synchronize()
-        finally:
-            torch.use_deterministic_algorithms(False)
-    ops = {}
-    for w in caught:
-        msg = str(w.message)
-        if "determinis" in msg:
-            key = msg.split(" does not have a deterministic")[0].split(". ")[0][:160]
-            ops[key] = ops.get(key, 0) + 1
-    print(f"zju step under use_deterministic_algorithms(True, warn_only=True) (e_all "
-          f"{err['e_all'].item():.6f}): {len(ops)} kinds of nondeterministic op, "
-          f"{sum(ops.values())} warnings: {ops}; beside them, outside torch's check: K1 "
-          f"(onehot_dmap.cu) adds each cell run's sums with float atomics, twice a step",
-          flush=True)
-    return sorted(ops)
 
 
 # ------------------------------------------------ export, checkpoints, ICON
@@ -4169,6 +4668,15 @@ def main() -> int:
         return 1
     dev = torch.device("cuda:0")
     phase("environment")
+    # importing the port puts CUBLAS_WORKSPACE_CONFIG in place (device.py)
+    # before this process's first cuBLAS call: training's deterministic mode
+    # needs it there
+    import keypointnerf_torch  # noqa: F401
+
+    print(f"CUBLAS_WORKSPACE_CONFIG={os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r} before the "
+          f"first work on the card; deterministic algorithms "
+          f"{torch.are_deterministic_algorithms_enabled()} (each training step turns them on "
+          f"for its body)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {card_line()}")
@@ -4182,8 +4690,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ptxas = start_ptxas_report("fused_geo_mlp")
+    yardstick = start_yardstick_build("onehot_dmap_atomic")
     built = build_all(KERNELS)
-    print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s "
+    finish_build(yardstick)
+    print(f"built {sorted(built)} and yardsticks/onehot_dmap_atomic.cu (the earlier K1, "
+          f"timed beside K1) in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in built.items()} })", flush=True)
     print_ptxas_report(ptxas)
 
@@ -4260,31 +4771,36 @@ def main() -> int:
         off = train_full_width(dev, capture_k1=True, capture_grads=True)
         launches["onehot_dmap"] = off["onehot_dmap"]
         bare_s_per_step = off["s_per_step"]
-        if len(off["k1_inputs"]) != 2:
-            raise SystemExit(f"captured {len(off['k1_inputs'])} K1 calls of a step, not 2")
+        captured = off.pop("k1_inputs")
+        if len(captured) != k1_per_step(zju_config()):
+            raise SystemExit(f"captured {len(captured)} K1 calls of a step, not "
+                             f"{k1_per_step(zju_config())}")
+        print(f"the zju step's K1 calls (cotangent shape, map H, W): "
+              f"{sorted((tuple(g.shape), H, W) for _, g, H, W, _ in captured)}", flush=True)
         phase("K1 at the training step's own points")
-        step_k1 = k1_at_step_points(dev, off.pop("k1_inputs"))
+        step_k1 = k1_at_step_points(dev, main_map_calls(captured))
+        phase("K1 at every call of the zju step, beside what the parent ran there")
+        all_k1 = k1_calls(dev, captured, "zju")
         if "onehot_dmap" in entries:
             # the kernels line times K1 where the main path runs it
             entry = entries["onehot_dmap"]
             entry["max_abs_err"] = max(entry["max_abs_err"], step_k1["max_abs_err"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], all_k1["max_abs_err"])
             entry.update({k: step_k1[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
-                                                  "library_ms", "step_ms")})
-        phase("the atomics' floor: the zju step three times more")
-        norms = [off["first"]["grad_norm"]]
-        for _ in range(3):
+                                                  "library_ms", "step_ms", "atomic_step_ms",
+                                                  "vs_atomic")})
+            entry["zju_step_all_calls"] = {k: all_k1[k] for k in ("ms", "parent_ms")}
+        phase("the zju step three times more, bit for bit")
+        for i in range(3):
             again = train_full_width(dev, warmup=1, steps=1, capture_grads=True)
-            compare_first_step_grads(off, again, "remat off again")
-            norms.append(again["first"]["grad_norm"])
+            same_first_step(off, again, f"the zju step, run {i + 2}")
             del again
-        print(f"first zju step's grad_norm over 4 runs of one program: {norms}; spread "
-              f"{(max(norms) - min(norms)) / norms[0]:.3e} of the first (with torch's "
-              f"bicubic upsample: ~3e-3 of the gradient, PERF.md §6)", flush=True)
-        phase("the zju step's nondeterministic ops (use_deterministic_algorithms, warn only)")
-        if nondeterministic_ops(dev):
-            raise SystemExit("torch reports a nondeterministic op in the zju step (the one "
-                             "it reported before, the bicubic upsample's backward, is two "
-                             "products now)")
+        phase("the zju step in strict deterministic mode")
+        strict_mode_step(dev)
+        phase("the encoders' replication padding against torch's")
+        check_replication_pad(dev)
+        phase("the zju step in deterministic mode against torch's defaults, in turns")
+        deterministic_cost(dev)
         phase("full-width zju training steps with use_pallas_geo_mlp (K5)")
         on = train_full_width(dev, use_pallas_geo_mlp=True)
         compare_first_steps(off["first"], on["first"])
@@ -4297,25 +4813,42 @@ def main() -> int:
         for flags in (dict(remat=True), dict(remat=True, remat_save_gathers=True)):
             what = " + ".join(flags)
             phase(f"full-width zju training steps with {what}")
-            compare_first_step_grads(off, train_full_width(dev, capture_grads=True, **flags),
-                                     what)
+            # the recompute changes no value and each leaf's gradient sums
+            # the same terms in the same order: bit-equal to remat off
+            run = train_full_width(dev, capture_grads=True, **flags)
+            same_first_step(off, run, f"the zju step with {what} against remat off")
+            print(f"{what}: {run['s_per_step']:.4f} s/step, peak {run['peak_bytes']} bytes "
+                  f"({run['peak_bytes'] / 2**30:.2f} GiB), {run['device_ms']:.3f} ms of kernel "
+                  f"time; remat off {off['s_per_step']:.4f} s/step, {off['peak_bytes']} bytes "
+                  f"({off['peak_bytes'] / 2**30:.2f} GiB), {off['device_ms']:.3f} ms", flush=True)
+            del run
         del off
         phase("full-width training steps with the fused feature map (K1 at 84 channels)")
-        fused = train_full_width(dev, capture_k1=True, fused_feature_map=True)
-        shapes = sorted((tuple(g.shape), H, W) for _, g, H, W, _ in fused["k1_inputs"])
+        fused = train_full_width(dev, capture_k1=True, capture_grads=True, fused_feature_map=True)
+        same_first_step(fused, train_full_width(dev, warmup=1, steps=1, capture_grads=True,
+                                                fused_feature_map=True),
+                        "the fused-map step, run 2")
+        captured = fused.pop("k1_inputs")
+        shapes = sorted((tuple(g.shape), H, W) for _, g, H, W, _ in main_map_calls(captured))
         print(f"fused-map step: K1 launches per step {fused['onehot_dmap']}; captured K1 calls "
-              f"(cotangent shape, map H, W): {shapes}", flush=True)
+              f"(cotangent shape, map H, W): "
+              f"{sorted((tuple(g.shape), H, W) for _, g, H, W, _ in captured)}", flush=True)
         if shapes != [((3, 4096 * 64, 84), 512, 512), ((3, 4096 * 128, 84), 512, 512)]:
             raise SystemExit("the fused-map step's K1 calls are not the 3 x 512² x 84 map's")
         phase("K1 at the fused-map step's own points")
-        fused_k1 = k1_at_step_points(dev, fused.pop("k1_inputs"), step="fused-map")
+        fused_k1 = k1_at_step_points(dev, main_map_calls(captured), step="fused-map")
+        phase("K1 at every call of the fused-map step, beside what the parent ran there")
+        fused_all = k1_calls(dev, captured, "fused-map")
         if "onehot_dmap" in entries:
             entry = entries["onehot_dmap"]
-            entry["max_abs_err"] = max(entry["max_abs_err"], fused_k1["max_abs_err"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], fused_k1["max_abs_err"],
+                                       fused_all["max_abs_err"])
             entry["fused_map_step"] = dict(
                 {k: fused_k1[k] for k in ("ms", "bound_ms", "bound_by", "plain_ms",
-                                          "library_ms", "step_ms", "max_abs_err")},
-                launches=fused["onehot_dmap"])
+                                          "library_ms", "step_ms", "atomic_step_ms",
+                                          "vs_atomic", "max_abs_err")},
+                launches=fused["onehot_dmap"],
+                all_calls={k: fused_all[k] for k in ("ms", "parent_ms")})
         print(f"fused-map training step: {fused['s_per_step']:.4f} s/step against the zju "
               f"step's {bare_s_per_step:.4f}; peak {fused['peak_bytes']} bytes "
               f"({fused['peak_bytes'] / 2**30:.2f} GiB); {fused['device_ms']:.3f} ms of kernel "
@@ -4366,11 +4899,15 @@ def main() -> int:
 
     if "gate" in todo:
         t0 = time.perf_counter()
+        phase(f"the gate's step, {GATE_REPEAT_STEPS} steps twice, bit for bit")
+        gate_twice = gate_steps_twice(dev)
         phase("the training-quality gate (python -m keypointnerf_torch.quality_gate), "
               f"{GATE_STEPS} steps")
         gate = gate_phase(dev)
         if "onehot_dmap" in entries:
             entries["onehot_dmap"]["gate_launches_per_step"] = gate["k1_per_step"]
+            entries["onehot_dmap"]["gate_step_all_calls"] = {
+                k: gate_twice[k] for k in ("ms", "parent_ms", "max_abs_err")}
         print(f"phase gate {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "data" in todo:

@@ -53,3 +53,7 @@ KeypointICON, and reads reference checkpoints.
 """
 
 __version__ = "0.1.0"
+
+# CUBLAS_WORKSPACE_CONFIG must be in place before the first cuBLAS call of
+# the process: importing any module of the port sets it (device.py)
+from . import device  # noqa: E402,F401

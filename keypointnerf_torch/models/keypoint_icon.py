@@ -35,7 +35,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, deterministic_training, resolve_device
 from ..geometry.cameras import compose_krt, ndc_xy, ndc_z, project_points, world_to_cam
 from ..ops.feat_sample import bilinear_sample
 from .cnn import HGFilter
@@ -211,15 +211,17 @@ def make_icon_train_step(model: KeypointICON, learning_rate: float = 1e-3):
 
     Returns (optimizer, step_fn): step_fn(image, pts, labels, K, R, t,
     kpt3d) updates `model` in place and returns the loss (a 0-d tensor,
-    before the update).
+    before the update). Each step runs in deterministic mode
+    (`device.deterministic_training`).
     """
     opt = torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
     def step_fn(image, pts, labels, K, R, t, kpt3d):
-        opt.zero_grad(set_to_none=True)
-        loss = bce_occupancy_loss(model(image, pts, K, R, t, kpt3d)[..., 0], labels)
-        loss.backward()
-        opt.step()
-        return loss.detach()
+        with deterministic_training():
+            opt.zero_grad(set_to_none=True)
+            loss = bce_occupancy_loss(model(image, pts, K, R, t, kpt3d)[..., 0], labels)
+            loss.backward()
+            opt.step()
+            return loss.detach()
 
     return opt, step_fn

@@ -165,6 +165,8 @@ class KeypointNeRFConfig:
     gather_lerp: bool = False
     gather_lerp_stride: int = 2
     train_matmul_gather_vjp: bool = False
+    # the JAX package's choice of map-gradient kernel, read from its config
+    # files; the port's lookups take K1's wrapper for every map either way
     train_pallas_dmap: bool = False
     tex_onehot_sample: bool = False
 
@@ -432,13 +434,11 @@ class KeypointNeRF(nn.Module):
         mask = (in_xy & (zn >= -1.0)).float()               # (V, N, 1)
 
         # with the matmul VJP, a map's gradient is the JAX package's exact
-        # one-hot sum, through K1 for maps of >= 32 gradient channels
+        # one-hot sum, through K1 for every map (`train_pallas_dmap`, the
+        # JAX package's choice of kernel for it, has no counterpart here)
         hd_ch = c.geo_out_ch_hd
-        if c.train_matmul_gather_vjp:
-            mvbs = functools.partial(multiview_bilinear_sample_mm,
-                                     pallas_dmap=c.train_pallas_dmap)
-        else:
-            mvbs = multiview_bilinear_sample
+        mvbs = (multiview_bilinear_sample_mm if c.train_matmul_gather_vjp
+                else multiview_bilinear_sample)
         feat_coarse = feat_xy = None
         if "fused" in feats:
             # one lookup of the packed map gives every per-point feature;

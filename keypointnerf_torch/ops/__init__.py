@@ -1,7 +1,6 @@
 from .composite_importance import composite_importance_plain, fused_composite_importance
 from .dma_gather import dma_gather_plain, multiview_bilinear_sample_dma
 from .feat_sample import (
-    DMAP_KERNEL_MIN_CHANNELS,
     bilinear_sample,
     multiview_bilinear_sample,
     multiview_bilinear_sample_mm,
@@ -17,7 +16,6 @@ from .onehot_bilinear import multiview_onehot_bilinear_sample, onehot_bilinear_p
 from .onehot_dmap import multiview_dmap_onehot, onehot_dmap_plain
 
 __all__ = [
-    "DMAP_KERNEL_MIN_CHANNELS",
     "bilinear_sample",
     "composite_importance_plain",
     "dma_gather_plain",

@@ -129,28 +129,29 @@ def bilinear_sample(feat, xy):
     return multiview_bilinear_sample(feat[None], xy[None])[0]
 
 
-# maps with at least this many gradient channels take K1 (the JAX
-# package's default KPN_DMAP_MIN_C; the env override is not ported)
-DMAP_KERNEL_MIN_CHANNELS = 32
-
-
 class _BilinearSampleMM(torch.autograd.Function):
     """`multiview_bilinear_sample` with the JAX package's matmul-VJP
     backward (`_mm_bwd_impl`): the coordinate gradient from one f32
     re-gather of the corners, zeroed where the unclamped coordinate lies
     outside [0, S-1]; the map gradient over the first `grad_channels`
     channels (zeros after them), per-term rounded to the map dtype and
-    summed in f32, returned in the map dtype."""
+    summed in f32, returned in the map dtype. The JAX package sends maps of
+    at least 32 gradient channels to its Pallas kernel (with its
+    `pallas_dmap`) and others to an XLA scan: the same terms either way.
+    The port takes K1's wrapper for every map: on the card K1, which sums
+    in a fixed order at any width (the plain version's index_add_ adds with
+    float atomics there, or sorts in deterministic mode); on the CPU its
+    plain version."""
 
     @staticmethod
-    def forward(ctx, feats, xy, grad_channels, pallas_dmap):
+    def forward(ctx, feats, xy, grad_channels):
         ctx.save_for_backward(feats, xy)
-        ctx.grad_channels, ctx.pallas_dmap = grad_channels, pallas_dmap
+        ctx.grad_channels = grad_channels
         return multiview_bilinear_sample(feats, xy)
 
     @staticmethod
     def backward(ctx, g):
-        from .onehot_dmap import multiview_dmap_onehot, onehot_dmap_plain
+        from .onehot_dmap import multiview_dmap_onehot
 
         feats, xy = ctx.saved_tensors
         V, H, W, C = feats.shape
@@ -175,22 +176,19 @@ class _BilinearSampleMM(torch.autograd.Function):
             # routes widen it exactly, so no f32 copy is made here
             gc = g[..., :cg].contiguous()
             xyf = xy.float().contiguous()
-            if ctx.pallas_dmap and cg >= DMAP_KERNEL_MIN_CHANNELS:
-                dmap = multiview_dmap_onehot(xyf, gc, H, W, feats.dtype)      # K1
-            else:
-                dmap = onehot_dmap_plain(xyf, gc, H, W, feats.dtype)          # the XLA scan's terms
+            dmap = multiview_dmap_onehot(xyf, gc, H, W, feats.dtype)          # K1
             if cg < C:
                 dmap = torch.cat([dmap, dmap.new_zeros((V, H, W, C - cg))], dim=-1)
             dmap = dmap.to(feats.dtype)
-        return dmap, dxy, None, None
+        return dmap, dxy, None
 
 
-def multiview_bilinear_sample_mm(feats, xy, grad_channels=None, pallas_dmap=False):
+def multiview_bilinear_sample_mm(feats, xy, grad_channels=None):
     """`multiview_bilinear_sample` with the matmul-VJP backward, the
     training-path lookup when `train_matmul_gather_vjp` is on.
 
     feats (V, H, W, C); xy (V, N, 2). `grad_channels` restricts the map
-    gradient to a channel prefix; with `pallas_dmap` a prefix of at least
-    DMAP_KERNEL_MIN_CHANNELS channels goes to K1 (ops/onehot_dmap.py).
+    gradient to a channel prefix, which K1 (ops/onehot_dmap.py) computes
+    (`_BilinearSampleMM`).
     """
-    return _BilinearSampleMM.apply(feats, xy, grad_channels, bool(pallas_dmap))
+    return _BilinearSampleMM.apply(feats, xy, grad_channels)

@@ -13,17 +13,19 @@ rows and two nonzero columns, so the same sum is, per point and corner
 with the clamp and weights of `feat_sample.bilinear_coords`, the xw * g
 product formed in f32 and rounded once to the map dtype, and an f32 sum.
 The XLA scan that the JAX package uses for narrower maps rounds each term
-the same way (`feat_sample.py:_mm_bwd_impl`), so `onehot_dmap_plain` is
-also the port's counterpart of that scan.
+the same way (`feat_sample.py:_mm_bwd_impl`), so the port takes this
+wrapper for every map gradient of the training lookups.
 
 The cotangent may be f32 or bf16 (a bf16 lookup's, as autograd hands it
 over): widening bf16 to f32 is exact, so both give the same terms.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(csrc/onehot_dmap.cu: points binned by map cell, summed in registers a
-cell at a time, one C call for all views and passes) or raises; on a CPU
-tensor it runs `onehot_dmap_plain`, the same terms summed with
-`index_add_`.
+(csrc/onehot_dmap.cu: points sorted stably by map cell, summed in
+registers a cell at a time, each texel combined from its cells in a fixed
+order, so two launches on the same inputs give the same bits; one C call
+for all views and passes) or raises; on a CPU tensor it runs
+`onehot_dmap_plain`, the same terms summed with `index_add_` (in index
+order on the CPU).
 """
 from __future__ import annotations
 
@@ -79,11 +81,23 @@ def _check(xy, g, H, W, map_dtype):
         raise ValueError(f"points on {xy.device} but cotangent on {g.device}")
 
 
-def scratch_bytes(V, N, H, W):
-    """Bytes of scratch the kernel takes: a count a map cell (padded to a
-    multiple of 4), an index and a rank a point
-    (`kpn_onehot_dmap_scratch_bytes`)."""
-    return 4 * (-(-V * H * W // 4) * 4) + 8 * V * N
+# the kernel's constants that size its scratch (csrc/onehot_dmap.cu)
+_TILE, _RADIX_BITS, _BINS, _MAX_PASSES, _SEGMENT = 2048, 8, 256, 4, 128
+
+
+def scratch_bytes(V, N, H, W, C):
+    """Bytes of scratch the kernel takes (`kpn_onehot_dmap_scratch_bytes`,
+    its `layout_of`): the sort's two (key, index) buffers, each cell's run
+    (a texel's worth of cells), the zeroed histograms and per-tile digit
+    counts, three corner planes of dmap's size and two pieces of (4, C)
+    floats a segment of sorted points."""
+    total, cells = V * N, V * H * W
+    tiles = -(-total // _TILE)
+    segments = -(-total // _SEGMENT)
+    key_bits = max(1, (cells - 1).bit_length())
+    passes = -(-key_bits // _RADIX_BITS)
+    ints = 4 * total + 2 * cells + _MAX_PASSES * _BINS + passes * _BINS * tiles
+    return -(-4 * ints // 16) * 16 + 4 * 3 * cells * C + 4 * 2 * segments * 4 * C
 
 
 @functools.cache
@@ -104,9 +118,9 @@ def _launch(xy, g, H, W, map_dtype):
         xy = xy.clone()                       # the kernel reads a point as a float2
     V, N, C = g.shape
     index = g.get_device()
-    # one C call zeroes the output and the histogram and launches every pass
+    # one C call writes every texel of the output and launches every pass
     dmap = torch.empty((V, H, W, C), dtype=torch.float32, device=g.device)
-    size = scratch_bytes(V, N, H, W)
+    size = scratch_bytes(V, N, H, W, C)
     scratch = torch.empty(size, dtype=torch.uint8, device=g.device)
 
     def launch():

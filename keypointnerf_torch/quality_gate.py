@@ -25,13 +25,17 @@ three numbers a chunk of `--steps-chunk` steps: the last loss and the
 largest gradient norm with its step. Nothing else waits on the device
 inside a chunk.
 
-Floors: the bf16 step is not bit-deterministic on the card (float atomics
-in the backward), so every recorded run is a draw. `--write-thresholds`
-appends this run to `runs`; the floors come from the runs at the pinned
-seed 125 without clip or warmup, less a margin: the larger of the JAX
-gate's (1.0 dB, 0.02 SSIM, 0.3 dB of fast delta) and twice those runs'
-spread on each metric. A run reads the thresholds file and rewrites it
-whole, so runs that record into one file run one after another.
+Floors: the training step runs in the port's deterministic mode
+(`device.deterministic_training`; K1 sums in a fixed order), so two runs at
+one seed on one card are bit-equal and their spread is 0.
+`--write-thresholds` appends this run to `runs`; the floors come from the
+runs at the pinned seed 125 without clip or warmup, less a margin: the
+larger of the JAX gate's (1.0 dB, 0.02 SSIM, 0.3 dB of fast delta) and
+twice those runs' spread on each metric. `earlier_runs` keeps, as records,
+the runs of the step before it was bit-reproducible (each a draw: float
+atomics in the backward), which set no floor. A run reads the thresholds
+file and rewrites it whole, so runs that record into one file run one
+after another.
 """
 from __future__ import annotations
 
@@ -300,7 +304,7 @@ def main(argv=None) -> dict:
         "steps": args.steps, "image": IMAGE, "patch": PATCH, "samples": SAMPLES,
         "n_train": N_TRAIN, "n_eval": N_EVAL,
         "recipe": "bf16 + per-map lookups + matmul VJP with K1 (no fused map), no remat, "
-                  "lambda_vgg=0, the port's init and draws",
+                  "lambda_vgg=0, the port's init and draws, deterministic mode",
         "fast_preset": f"models/presets.py fast_preset with empty-cull budget "
                        f"{FAST_CULL_BUDGET}",
     }

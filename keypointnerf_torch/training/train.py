@@ -33,6 +33,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..device import deterministic_training
 from ..models.keypoint_nerf import KeypointNeRF, ViewBatch
 from ..models.vgg import VGG19Features
 from .draws import TrainDraws
@@ -197,7 +198,19 @@ def train_batch_step_fn(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainS
     None is no group) `batch` is this rank's slice of the global batch,
     and the gradients and terms are the means over the ranks
     (`parallel.train_parallel.reduce_step`) before grad_norm and the
-    update. Updates `state` in place and returns the detached terms."""
+    update. Updates `state` in place and returns the detached terms. Runs
+    in deterministic mode (`device.deterministic_training`): the same
+    state, batch and draws give the same bits."""
+    with deterministic_training():
+        return step_without_mode(model, loss_cfg, state, batch, draws, group)
+
+
+def step_without_mode(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainState,
+                      batch: Sequence[ViewBatch], draws: Sequence[TrainDraws],
+                      group=None) -> Dict[str, torch.Tensor]:
+    """`train_batch_step_fn`'s work in whatever mode the process is in: with
+    torch's defaults, the step a run without deterministic mode would take
+    (chip_smoke.py times the mode's cost against it)."""
     params = list(model.parameters())
     totals, errs = [], []
     for vb, d in zip(batch, draws, strict=True):

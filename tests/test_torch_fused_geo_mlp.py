@@ -447,34 +447,3 @@ def test_non_zju_width_render_with_flag():
         a, b = outs[False][k].float(), outs[True][k].float()
         assert bool(torch.isfinite(b).all()), k
         assert float((a - b).abs().max() / a.abs().max()) <= 0.01, k
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("views,n", [(3, N), (2, N), (3, 131), (1, 64)])
-@pytest.mark.parametrize("kind", ["k4", "k5"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain_on_card(case, kind, dtype, views, n):
-    """The CUDA kernel against its plain version on the card, at the zju
-    widths, for V = 1, 2, 3 and N a multiple of the bf16 kernel's 64-point
-    tile or not (sum order: 1e-4 of each output's largest entry in f32;
-    plus the rare bf16 flip of an activation in bf16: 1%)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU or interpret mode")
-    dev, dt = torch.device("cuda"), getattr(torch, dtype)
-    t = {k: v[:views, :n].contiguous().to(dev) if k != "kpt_cam" else v[:views].to(dev)
-         for k, v in case["t"].items()}
-    ws = [w.detach().to(dev) for w in tfused.fold_weight_norm(case["tm"])]
-    moved = dict(case, t=t)
-    before = tfused.geo_mlp_apply.launches + tfused.sp_geo_mlp_apply.launches
-    got = _torch_apply(moved, kind, ws, dt)
-    assert tfused.geo_mlp_apply.launches + tfused.sp_geo_mlp_apply.launches == before + 1
-    lead = [t["sp"]] if kind == "k4" else [t["pts_cam"], t["kpt_cam"]]
-    with torch.no_grad():
-        ref = tfused._plain(lead, t["f0"], t["f1"], t["mask"], t["weight"], ws, dt,
-                            None if kind == "k4" else (3, 0.1, 1.0))
-    tol = 1e-4 if dtype == "float32" else 1e-2
-    for name, a, b in zip(NAMES, ref, got):
-        if name == "valid":
-            assert torch.equal(a, b)
-        else:
-            assert float((a - b).abs().max()) <= tol * float(a.abs().max()), name

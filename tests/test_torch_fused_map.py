@@ -271,25 +271,3 @@ def test_fused_map_guards(world):
     with torch.no_grad():
         assert torch.equal(train, model.encode(tvb.src_images, tvb.src_masks)["fused"])
     assert train.requires_grad
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_k3_kernel_matches_plain_on_card(dtype):
-    """The CUDA kernel against its plain version on the card, bit for bit
-    (the same rounding at every step), at the fused 84-ch map and an odd
-    channel count, with a ragged N."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    dt = getattr(torch, dtype)
-    fn = dma_gather.multiview_bilinear_sample_dma
-    for shape in [(3, 256, 256, 84), (2, 33, 17, 37)]:
-        maps, xy = _k3_inputs(shape, 20001, seed=5)
-        m = torch.from_numpy(maps).cuda().to(dt)
-        p = torch.from_numpy(xy).cuda()
-        before = fn.launches
-        got = fn(m, p)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
-        ref = dma_gather.dma_gather_plain(m, p)
-        assert torch.equal(got, ref)

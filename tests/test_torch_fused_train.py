@@ -165,23 +165,24 @@ def test_fused_train_step_matches_jax(fused):
 def test_fused_map_is_looked_up_once_a_query(fused, monkeypatch):
     """In training the query looks up only the fused map, through the
     matmul-VJP lookup over all 84 channels (no channel prefix); encode's
-    three upsampling lookups take it too, with the plain map gradient."""
+    three upsampling lookups take it too (K1's wrapper computes every map
+    gradient)."""
     from keypointnerf_torch.models import keypoint_nerf as knerf
 
     calls = []
     real = knerf.multiview_bilinear_sample_mm
 
-    def spy(feats, xy, grad_channels=None, pallas_dmap=False):
-        calls.append((tuple(feats.shape), grad_channels, pallas_dmap))
-        return real(feats, xy, grad_channels, pallas_dmap)
+    def spy(feats, xy, grad_channels=None):
+        calls.append((tuple(feats.shape), grad_channels))
+        return real(feats, xy, grad_channels)
 
     monkeypatch.setattr(knerf, "multiview_bilinear_sample_mm", spy)
     port_step(fused["tc"], fused["sd"], fused["vgg"], fused["sample"], fused["draws"])
     size = fused["sample"]["src_images"].shape[1]
-    assert calls == [((3, size // 4, size // 4, 64), None, False),
-                     ((3, size // 2, size // 2, 8), None, False),
-                     ((3, size, size, 84), None, True),
-                     ((3, size, size, 84), None, True)]
+    assert calls == [((3, size // 4, size // 4, 64), None),
+                     ((3, size // 2, size // 2, 8), None),
+                     ((3, size, size, 84), None),
+                     ((3, size, size, 84), None)]
 
 
 @pytest.mark.parametrize("flag", ["remat", "remat_save_gathers"])

@@ -122,25 +122,3 @@ def test_piece_bytes(channels, esize, offset, want):
     """The lookup kernels' piece width: the widest of 16 and 8 bytes that
     divides the row and every pointer, else one element."""
     assert feat_sample.piece_bytes(channels * esize, esize, 1 << 20, (1 << 21) + offset) == want
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_onehot_kernel_matches_plain_on_card(dtype):
-    """The CUDA kernel against its plain version on the card: bit-equal in
-    bf16, <= 1e-6 in f32 (both use separately rounded f32 products and sums)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    dt = getattr(torch, dtype)
-    for shape in [(3, 256, 256, 8), (3, 33, 17, 8)]:
-        maps, xy = _inputs(shape, n=20000, seed=5)
-        m = torch.from_numpy(maps).cuda().to(dt)
-        p = torch.from_numpy(xy).cuda()
-        fn = onehot_bilinear.multiview_onehot_bilinear_sample
-        before = fn.launches
-        got = fn(m, p)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
-        ref = onehot_bilinear.onehot_bilinear_plain(m, p)
-        err = (got.float() - ref.float()).abs().max().item()
-        assert err <= (0.0 if dt == torch.bfloat16 else 1e-6), err

@@ -136,7 +136,7 @@ def test_bilinear_sample_mm_bf16_cotangent():
     ft = _t(feats.astype(jnp.float32)).bfloat16().requires_grad_(True)
     xt = _t(xy).requires_grad_(True)
     gt = _t(g.astype(jnp.float32)).bfloat16()
-    out = multiview_bilinear_sample_mm(ft, xt, None, True)
+    out = multiview_bilinear_sample_mm(ft, xt, None)
     out.backward(gt)
     assert ft.grad.dtype == torch.bfloat16
     wide = onehot_dmap_plain(xt.detach(), gt.float(), H, W, torch.bfloat16).bfloat16()
@@ -155,7 +155,9 @@ def test_bilinear_sample_mm_bf16_cotangent():
 @pytest.mark.parametrize("pallas_dmap", [False, True])
 def test_bilinear_sample_mm_grads(grad_channels, pallas_dmap):
     """The port's matmul-VJP Function against `bilinear_sample_mm` /
-    `bilinear_sample_mm_partial` (dmap and dxy) on a 12-channel map."""
+    `bilinear_sample_mm_partial` (dmap and dxy) on a 12-channel map, with
+    the JAX package's map gradient by its Pallas kernel or its XLA scan
+    (`pallas_dmap`): the port computes it one way, K1's wrapper."""
     rs = np.random.default_rng(5)
     V, H, W, C, N = 2, 16, 12, 12, 600
     feats = rs.normal(size=(V, H, W, C)).astype(np.float32)
@@ -171,7 +173,7 @@ def test_bilinear_sample_mm_grads(grad_channels, pallas_dmap):
     grad = jax.grad(one, argnums=(0, 1))
     refs = [grad(jnp.asarray(feats[v]), jnp.asarray(xy[v]), jnp.asarray(g[v])) for v in range(V)]
     ft, xt = _t(feats).requires_grad_(True), _t(xy).requires_grad_(True)
-    out = multiview_bilinear_sample_mm(ft, xt, grad_channels, pallas_dmap)
+    out = multiview_bilinear_sample_mm(ft, xt, grad_channels)
     (out * _t(g)).sum().backward()
     for v in range(V):
         np.testing.assert_allclose(ft.grad[v].numpy(), np.asarray(refs[v][0]), **F32_TOL)
