@@ -1634,21 +1634,39 @@ def orbit_camera(ang):
     return look_at(eye, np.zeros(3))
 
 
+def is_kernel_event(e) -> bool:
+    """Whether a profiler (kineto) event is a CUDA kernel's run: on the
+    device, and not the device-side copy of a host range (a `kpnerf::`
+    span, a registered op, `record_function`), a copy or a fill."""
+    if not str(e.device_type()).endswith("CUDA") or e.duration_ns() <= 0:
+        return False
+    try:
+        act = str(e.activity_type()).lower()
+    except (AttributeError, RuntimeError):
+        act = ""
+    return not (e.is_user_annotation() or "annotation" in act or "memcpy" in act
+                or "memset" in act or e.name().startswith(("Memcpy", "Memset", "kpnerf::")))
+
+
 def profile_kernels(fn, top):
     """Run fn() under the profiler; print and return the device time (ms)
-    of its CUDA kernels (an aten op's device time is its kernels' again)."""
+    of its CUDA kernels, each run counted once (`is_kernel_event`: no aten
+    op's or range's device time, which repeats its kernels')."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA") and device_us(e) > 0]
-    total = sum(device_us(e) for e in events) / 1e3
-    print(f"profile: device time {total:.3f} ms in {sum(e.count for e in events)} kernel "
-          f"launches", flush=True)
-    for e in sorted(events, key=lambda e: -device_us(e))[:top]:
-        print(f"  {device_us(e) / 1e3:10.3f} ms  {e.count:6d}x  {e.key[:90]}", flush=True)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if is_kernel_event(e):
+            n, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (n + 1, ns + e.duration_ns())
+    total = sum(ns for _, ns in by_name.values()) / 1e6
+    print(f"profile: device time {total:.3f} ms in {sum(n for n, _ in by_name.values())} "
+          f"kernel launches", flush=True)
+    for name, (n, ns) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {ns / 1e6:10.3f} ms  {n:6d}x  {name[:90]}", flush=True)
     return total
 
 

@@ -93,6 +93,7 @@ from ..ops.composite_importance import fused_composite_importance
 from ..ops.dma_gather import multiview_bilinear_sample_dma
 from ..ops.feat_sample import multiview_bilinear_sample, multiview_bilinear_sample_mm
 from ..ops.onehot_bilinear import multiview_onehot_bilinear_sample
+from ..utils.profiling import span
 from .cnn import ConvTranspose2d, HGFilter, ResBlkEncoder, avg_pool2
 from .ibr_head import IBRRenderingHead, dense
 from .mlp import GeoFusionMLP
@@ -359,44 +360,45 @@ class KeypointNeRF(nn.Module):
 
         Gradients flow when autograd is on.
         """
-        x = (2.0 * src_images - 1.0).to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
-        x_geo = x
-        for _ in range(self.cfg.ds_geo):
-            x_geo = avg_pool2(x_geo)
-        x_tex = x
-        for _ in range(self.cfg.ds_tex):
-            x_tex = avg_pool2(x_tex)
-        nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()  # noqa: E731
-        coarse, hd = self.geo_encoder(x_geo)
-        feats = {"geo": [nhwc(coarse), nhwc(hd)], "tex": nhwc(self.tex_encoder(x_tex))}
-        hd = feats["geo"][1]
-        if src_masks is None or hd.shape[1:3] != src_images.shape[1:3]:
+        with span("encode"):
+            x = (2.0 * src_images - 1.0).to(self.cfg.compute_dtype).permute(0, 3, 1, 2)
+            x_geo = x
+            for _ in range(self.cfg.ds_geo):
+                x_geo = avg_pool2(x_geo)
+            x_tex = x
+            for _ in range(self.cfg.ds_tex):
+                x_tex = avg_pool2(x_tex)
+            nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()  # noqa: E731
+            coarse, hd = self.geo_encoder(x_geo)
+            feats = {"geo": [nhwc(coarse), nhwc(hd)], "tex": nhwc(self.tex_encoder(x_tex))}
+            hd = feats["geo"][1]
+            if src_masks is None or hd.shape[1:3] != src_images.shape[1:3]:
+                return feats
+            dt = hd.dtype
+            hd_rgb_mask = torch.cat([hd, src_images.to(dt), src_masks.to(dt)], dim=-1)
+            if not self.cfg.fused_feature_map:
+                feats["full"] = hd_rgb_mask
+                return feats
+            V, H, W = src_images.shape[:3]
+            half = (self.cfg.fused_map_half
+                    and min(H, W) >= self.cfg.fused_map_half_min_side)
+            Hm, Wm = (H // 2, W // 2) if half else (H, W)
+            grid = pixel_grid(Hm, Wm, device=src_images.device).float()
+            xy = torch.stack([2.0 * grid[:, 0] / (Wm - 1.0) - 1.0,
+                              2.0 * grid[:, 1] / (Hm - 1.0) - 1.0], dim=-1)
+            xy = xy[None].expand(V, -1, -1)
+            up = (multiview_bilinear_sample_mm if train and self.cfg.train_matmul_gather_vjp
+                  else multiview_bilinear_sample)
+            up_coarse = up(feats["geo"][0], xy).reshape(V, Hm, Wm, -1)
+            up_tex = up(feats["tex"], xy).reshape(V, Hm, Wm, -1)
+            if half:
+                hd_rgb_mask = up(hd_rgb_mask, xy).reshape(V, Hm, Wm, -1)
+            # [coarse | hd | tex | rgb | mask]: query_points slices by this layout
+            hd_ch = self.cfg.geo_out_ch_hd
+            feats["fused"] = torch.cat(
+                [up_coarse.to(dt), hd_rgb_mask[..., :hd_ch], up_tex.to(dt),
+                 hd_rgb_mask[..., hd_ch:]], dim=-1)
             return feats
-        dt = hd.dtype
-        hd_rgb_mask = torch.cat([hd, src_images.to(dt), src_masks.to(dt)], dim=-1)
-        if not self.cfg.fused_feature_map:
-            feats["full"] = hd_rgb_mask
-            return feats
-        V, H, W = src_images.shape[:3]
-        half = (self.cfg.fused_map_half
-                and min(H, W) >= self.cfg.fused_map_half_min_side)
-        Hm, Wm = (H // 2, W // 2) if half else (H, W)
-        grid = pixel_grid(Hm, Wm, device=src_images.device).float()
-        xy = torch.stack([2.0 * grid[:, 0] / (Wm - 1.0) - 1.0,
-                          2.0 * grid[:, 1] / (Hm - 1.0) - 1.0], dim=-1)
-        xy = xy[None].expand(V, -1, -1)
-        up = (multiview_bilinear_sample_mm if train and self.cfg.train_matmul_gather_vjp
-              else multiview_bilinear_sample)
-        up_coarse = up(feats["geo"][0], xy).reshape(V, Hm, Wm, -1)
-        up_tex = up(feats["tex"], xy).reshape(V, Hm, Wm, -1)
-        if half:
-            hd_rgb_mask = up(hd_rgb_mask, xy).reshape(V, Hm, Wm, -1)
-        # [coarse | hd | tex | rgb | mask]: query_points slices by this layout
-        hd_ch = self.cfg.geo_out_ch_hd
-        feats["fused"] = torch.cat(
-            [up_coarse.to(dt), hd_rgb_mask[..., :hd_ch], up_tex.to(dt),
-             hd_rgb_mask[..., hd_ch:]], dim=-1)
-        return feats
 
     # ----------------------------------------------------------------- query
     def query_points(self, pts, view_dirs, feats, vb: ViewBatch, n_samples: int,
@@ -419,71 +421,73 @@ class KeypointNeRF(nn.Module):
         (V, N, .) tensors: xy, zn, mask, feat_coarse, feat_hd, feat_xy,
         img_xy, fg (the JAX model's `kpn_gathered` values are the last
         five)."""
-        c = self.cfg
-        H, W = vb.src_images.shape[1:3]
-        N = pts.shape[0]
+        with span("query.lookup"):
+            c = self.cfg
+            H, W = vb.src_images.shape[1:3]
+            N = pts.shape[0]
 
-        krt = compose_krt(vb.src_K, vb.src_R, vb.src_t)   # (V, 4, 4)
-        xy_pix, z = project_points(pts[None], krt)         # (V, N, 2), (V, N, 1)
-        xy = ndc_xy(xy_pix, W, H)
-        zn = ndc_z(z, c.znear, c.zfar)
+            krt = compose_krt(vb.src_K, vb.src_R, vb.src_t)   # (V, 4, 4)
+            xy_pix, z = project_points(pts[None], krt)         # (V, N, 2), (V, N, 1)
+            xy = ndc_xy(xy_pix, W, H)
+            zn = ndc_z(z, c.znear, c.zfar)
 
-        # frustum validity
-        eps = 1e-2
-        in_xy = ((xy >= -1.0 - eps) & (xy <= 1.0 + eps)).all(dim=-1, keepdim=True)
-        mask = (in_xy & (zn >= -1.0)).float()               # (V, N, 1)
+            # frustum validity
+            eps = 1e-2
+            in_xy = ((xy >= -1.0 - eps) & (xy <= 1.0 + eps)).all(dim=-1, keepdim=True)
+            mask = (in_xy & (zn >= -1.0)).float()               # (V, N, 1)
 
-        # with the matmul VJP, a map's gradient is the JAX package's exact
-        # one-hot sum, through K1 for every map (`train_pallas_dmap`, the
-        # JAX package's choice of kernel for it, has no counterpart here)
-        hd_ch = c.geo_out_ch_hd
-        mvbs = (multiview_bilinear_sample_mm if c.train_matmul_gather_vjp
-                else multiview_bilinear_sample)
-        feat_coarse = feat_xy = None
-        if "fused" in feats:
-            # one lookup of the packed map gives every per-point feature;
-            # the lerp is off under K3, as in the JAX model (the cull's
-            # bound still follows `gather_lerp` alone, render/empty_cull.py).
-            # In training the matmul-VJP lookup of all 84 channels sends the
-            # map gradient through K1
-            dma = c.use_dma_gather and not train
-            lerp = (c.gather_lerp and not train and not dma
-                    and n_samples > c.gather_lerp_stride >= 2 and N % n_samples == 0)
-            if dma:
-                fx = multiview_bilinear_sample_dma(feats["fused"], xy.float().contiguous())  # K3
-            elif lerp:
-                fx = strided_gather_lerp(feats["fused"], xy, n_samples, c.gather_lerp_stride)
+            # with the matmul VJP, a map's gradient is the JAX package's exact
+            # one-hot sum, through K1 for every map (`train_pallas_dmap`, the
+            # JAX package's choice of kernel for it, has no counterpart here)
+            hd_ch = c.geo_out_ch_hd
+            mvbs = (multiview_bilinear_sample_mm if c.train_matmul_gather_vjp
+                    else multiview_bilinear_sample)
+            feat_coarse = feat_xy = None
+            if "fused" in feats:
+                # one lookup of the packed map gives every per-point feature;
+                # the lerp is off under K3, as in the JAX model (the cull's
+                # bound still follows `gather_lerp` alone, render/empty_cull.py).
+                # In training the matmul-VJP lookup of all 84 channels sends the
+                # map gradient through K1
+                dma = c.use_dma_gather and not train
+                lerp = (c.gather_lerp and not train and not dma
+                        and n_samples > c.gather_lerp_stride >= 2 and N % n_samples == 0)
+                if dma:
+                    fx = multiview_bilinear_sample_dma(                        # K3
+                        feats["fused"], xy.float().contiguous())
+                elif lerp:
+                    fx = strided_gather_lerp(feats["fused"], xy, n_samples, c.gather_lerp_stride)
+                else:
+                    fx = mvbs(feats["fused"], xy)
+                co_ch, tx_ch = c.geo_out_ch, c.tex_out_ch
+                feat_coarse = fx[..., :co_ch]
+                feat_hd = fx[..., co_ch : co_ch + hd_ch]
+                feat_xy = fx[..., co_ch + hd_ch : co_ch + hd_ch + tx_ch]
+                base = co_ch + hd_ch + tx_ch
+                img_xy = fx[..., base : base + 3]
+                fg = fx[..., base + 3 : base + 4]
+            elif "full" in feats:
+                if c.train_matmul_gather_vjp:
+                    # the RGB / mask channels' gradients die at the input
+                    # leaves: only the hd prefix gets a map gradient
+                    full_xy = mvbs(feats["full"], xy, grad_channels=hd_ch)  # (V, N, 12)
+                else:
+                    full_xy = mvbs(feats["full"], xy)
+                feat_hd = full_xy[..., :hd_ch]
+                img_xy = full_xy[..., hd_ch : hd_ch + 3]
+                fg = full_xy[..., hd_ch + 3 : hd_ch + 4]
             else:
-                fx = mvbs(feats["fused"], xy)
-            co_ch, tx_ch = c.geo_out_ch, c.tex_out_ch
-            feat_coarse = fx[..., :co_ch]
-            feat_hd = fx[..., co_ch : co_ch + hd_ch]
-            feat_xy = fx[..., co_ch + hd_ch : co_ch + hd_ch + tx_ch]
-            base = co_ch + hd_ch + tx_ch
-            img_xy = fx[..., base : base + 3]
-            fg = fx[..., base + 3 : base + 4]
-        elif "full" in feats:
-            if c.train_matmul_gather_vjp:
-                # the RGB / mask channels' gradients die at the input
-                # leaves: only the hd prefix gets a map gradient
-                full_xy = mvbs(feats["full"], xy, grad_channels=hd_ch)  # (V, N, 12)
-            else:
-                full_xy = mvbs(feats["full"], xy)
-            feat_hd = full_xy[..., :hd_ch]
-            img_xy = full_xy[..., hd_ch : hd_ch + 3]
-            fg = full_xy[..., hd_ch + 3 : hd_ch + 4]
-        else:
-            feat_hd = mvbs(feats["geo"][1], xy)
-            img_xy = multiview_bilinear_sample(vb.src_images, xy)
-            fg = multiview_bilinear_sample(vb.src_masks, xy)
-        if feat_coarse is None:
-            feat_coarse = mvbs(feats["geo"][0], xy)
-        if feat_xy is None and c.tex_onehot_sample and not train:
-            feat_xy = multiview_onehot_bilinear_sample(feats["tex"], xy)  # K2
-        elif feat_xy is None:
-            feat_xy = mvbs(feats["tex"], xy)
-        return dict(xy=xy, zn=zn, mask=mask, feat_coarse=feat_coarse, feat_hd=feat_hd,
-                    feat_xy=feat_xy, img_xy=img_xy, fg=fg)
+                feat_hd = mvbs(feats["geo"][1], xy)
+                img_xy = multiview_bilinear_sample(vb.src_images, xy)
+                fg = multiview_bilinear_sample(vb.src_masks, xy)
+            if feat_coarse is None:
+                feat_coarse = mvbs(feats["geo"][0], xy)
+            if feat_xy is None and c.tex_onehot_sample and not train:
+                feat_xy = multiview_onehot_bilinear_sample(feats["tex"], xy)  # K2
+            elif feat_xy is None:
+                feat_xy = mvbs(feats["tex"], xy)
+            return dict(xy=xy, zn=zn, mask=mask, feat_coarse=feat_coarse, feat_hd=feat_hd,
+                        feat_xy=feat_xy, img_xy=img_xy, fg=fg)
 
     def query_head(self, pts, view_dirs, vb: ViewBatch, looked, train: bool = False,
                    view_keep=None):
@@ -497,68 +501,69 @@ class KeypointNeRF(nn.Module):
         xy, zn, mask, fg = looked["xy"], looked["zn"], looked["mask"], looked["fg"]
         feat_coarse, feat_hd = looked["feat_coarse"], looked["feat_hd"]
 
-        # all views must land on the foreground
-        all_valid = (mask > 0.0).all(dim=0)
-        if not c.disable_fg_mask:
-            all_valid = all_valid & (fg > 0.1).all(dim=0)
-        mask = mask * all_valid[None].float()
+        with span("query.geo"):
+            # all views must land on the foreground
+            all_valid = (mask > 0.0).all(dim=0)
+            if not c.disable_fg_mask:
+                all_valid = all_valid & (fg > 0.1).all(dim=0)
+            mask = mask * all_valid[None].float()
 
-        # view dropout: one random view kept, the others with p = 0.5
-        if train and V > 1:
-            mask = mask * view_keep.to(mask.dtype)[:, None, None]
+            # view dropout: one random view kept, the others with p = 0.5
+            if train and V > 1:
+                mask = mask * view_keep.to(mask.dtype)[:, None, None]
 
-        # smooth border pixel weights
-        xyz01 = 0.5 * torch.cat([xy, zn], dim=-1) + 0.5
-        dist_b = torch.minimum(xyz01, 1.0 - xyz01)
-        pw = torch.sigmoid(5.0 * (dist_b / 0.1 - 1.0))
-        pw = pw[..., 0:1] * pw[..., 1:2] * pw[..., 2:3]
-        pw = pw * mask
-        pw = (pw / (pw.sum(dim=0, keepdim=True) + 1e-6)).detach()
+            # smooth border pixel weights
+            xyz01 = 0.5 * torch.cat([xy, zn], dim=-1) + 0.5
+            dist_b = torch.minimum(xyz01, 1.0 - xyz01)
+            pw = torch.sigmoid(5.0 * (dist_b / 0.1 - 1.0))
+            pw = pw[..., 0:1] * pw[..., 1:2] * pw[..., 2:3]
+            pw = pw * mask
+            pw = (pw / (pw.sum(dim=0, keepdim=True) + 1e-6)).detach()
 
-        # relative spatial encoding
-        pts_cam = world_to_cam(pts[None], vb.src_R, vb.src_t)       # (V, N, 3)
-        kpt_cam = world_to_cam(vb.kpt3d[None], vb.src_R, vb.src_t)  # (V, Kp, 3)
-        if c.use_pallas_geo_mlp:
-            # one kernel launch for the encoding-and-MLP chain; it takes f32
-            # inputs and rounds its dot operands to `cdt` itself (imported
-            # here: ops.fused_geo_mlp imports models.mlp)
-            from ..ops.fused_geo_mlp import geo_mlp_apply, sp_geo_mlp_apply
-
-            def f32(t):
-                return t.float().contiguous()
-
-            rest = (f32(feat_coarse), f32(feat_hd), f32(mask), f32(pw))
-        if c.use_pallas_geo_mlp and c.sp_type == "rel_z_decay":
-            out, valid, _, latent_fused = sp_geo_mlp_apply(           # K5
-                self.mlp_geo, f32(pts_cam), f32(kpt_cam), *rest, sp_level=c.sp_level,
-                sp_sigma=c.sp_sigma, sp_scale=c.sp_scale, compute_dtype=cdt)
-        else:
-            sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam,
-                                z_ndc=zn, xy_ndc=xy)
+            # relative spatial encoding
+            pts_cam = world_to_cam(pts[None], vb.src_R, vb.src_t)       # (V, N, 3)
+            kpt_cam = world_to_cam(vb.kpt3d[None], vb.src_R, vb.src_t)  # (V, Kp, 3)
             if c.use_pallas_geo_mlp:
-                out, valid, _, latent_fused = geo_mlp_apply(          # K4
-                    self.mlp_geo, f32(sp), *rest, compute_dtype=cdt)
+                # one kernel launch for the encoding-and-MLP chain; it takes f32
+                # inputs and rounds its dot operands to `cdt` itself (imported
+                # here: ops.fused_geo_mlp imports models.mlp)
+                from ..ops.fused_geo_mlp import geo_mlp_apply, sp_geo_mlp_apply
+
+                def f32(t):
+                    return t.float().contiguous()
+
+                rest = (f32(feat_coarse), f32(feat_hd), f32(mask), f32(pw))
+            if c.use_pallas_geo_mlp and c.sp_type == "rel_z_decay":
+                out, valid, _, latent_fused = sp_geo_mlp_apply(           # K5
+                    self.mlp_geo, f32(pts_cam), f32(kpt_cam), *rest, sp_level=c.sp_level,
+                    sp_sigma=c.sp_sigma, sp_scale=c.sp_scale, compute_dtype=cdt)
             else:
-                out, valid, _, latent_fused = self.mlp_geo(
-                    sp.to(cdt), [feat_coarse.to(cdt), feat_hd.to(cdt)],
-                    mask.to(cdt), pw.to(cdt))
+                sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam,
+                                    z_ndc=zn, xy_ndc=xy)
+                if c.use_pallas_geo_mlp:
+                    out, valid, _, latent_fused = geo_mlp_apply(          # K4
+                        self.mlp_geo, f32(sp), *rest, compute_dtype=cdt)
+                else:
+                    out, valid, _, latent_fused = self.mlp_geo(
+                        sp.to(cdt), [feat_coarse.to(cdt), feat_hd.to(cdt)],
+                        mask.to(cdt), pw.to(cdt))
 
-        # color
-        latent24 = dense(self.ibr_compress_gfeat, latent_fused, cdt)
-        latent24 = latent24[None].expand(V, N, c.gcompress_out)
-        rgb_feat = torch.cat([looked["img_xy"].to(cdt), looked["feat_xy"].to(cdt), latent24],
-                             dim=-1)
+        with span("query.ibr"):
+            latent24 = dense(self.ibr_compress_gfeat, latent_fused, cdt)
+            latent24 = latent24[None].expand(V, N, c.gcompress_out)
+            rgb_feat = torch.cat([looked["img_xy"].to(cdt), looked["feat_xy"].to(cdt), latent24],
+                                 dim=-1)
 
-        cam_pos = camera_center(vb.src_R, vb.src_t)                 # (V, 3)
-        cam_rays = pts[None] - cam_pos[:, None, :]
-        cam_rays = cam_rays / (torch.linalg.norm(cam_rays, dim=-1, keepdim=True) + 1e-9)
-        rd = view_dirs[None] - cam_rays
-        rd_norm = torch.linalg.norm(rd, dim=-1, keepdim=True)
-        rd_dir = rd / torch.clamp(rd_norm, min=1e-6)
-        rd_dot = (cam_rays * view_dirs[None]).sum(dim=-1, keepdim=True)
-        ray_diff = torch.cat([rd_dir, rd_dot], dim=-1)              # (V, N, 4)
+            cam_pos = camera_center(vb.src_R, vb.src_t)                 # (V, 3)
+            cam_rays = pts[None] - cam_pos[:, None, :]
+            cam_rays = cam_rays / (torch.linalg.norm(cam_rays, dim=-1, keepdim=True) + 1e-9)
+            rd = view_dirs[None] - cam_rays
+            rd_norm = torch.linalg.norm(rd, dim=-1, keepdim=True)
+            rd_dir = rd / torch.clamp(rd_norm, min=1e-6)
+            rd_dot = (cam_rays * view_dirs[None]).sum(dim=-1, keepdim=True)
+            ray_diff = torch.cat([rd_dir, rd_dot], dim=-1)              # (V, N, 4)
 
-        rgb = self.mlp_tex(rgb_feat, ray_diff.to(cdt), mask.to(cdt))  # (N, 3)
+            rgb = self.mlp_tex(rgb_feat, ray_diff.to(cdt), mask.to(cdt))  # (N, 3)
         return (out[..., 0:1].float(), out[..., 1:].float(), rgb.float(),
                 valid.float())
 
@@ -643,87 +648,86 @@ class KeypointNeRF(nn.Module):
             sdf = sdf.new_full((Rn, S), c.bkg_sdf).index_copy_(0, csel, sdf)
             rgb = rgb.new_zeros(Rn, S, 3).index_copy_(0, csel, rgb)
         use_pc = not train and fine and c.use_pallas_composite
-        if use_pc:
-            # one K6 launch: the coarse composite and the fine depths
-            u = linspace01(c.n_fine, z.dtype, z.device)
-            color, depth, acc, sdf_c, contrib, z_fine = fused_composite_importance(
-                z.contiguous(), alpha.contiguous(), sdf.contiguous(), rgb.contiguous(),
-                u.expand(Rn, c.n_fine).contiguous())
-            coarse = CompositeOut(color, depth, acc, contrib, sdf_c)
-        else:
-            coarse = composite(alpha, sdf, rgb, z)
-        out = {
-            "rgb_coarse": coarse.color,
-            "depth_coarse": coarse.depth,
-            "acc_coarse": coarse.acc,
-        }
-        if not fine:
-            return out
+        with span("march.composite"):
+            if use_pc:
+                # one K6 launch: the coarse composite and the fine depths
+                u = linspace01(c.n_fine, z.dtype, z.device)
+                color, depth, acc, sdf_c, contrib, z_fine = fused_composite_importance(
+                    z.contiguous(), alpha.contiguous(), sdf.contiguous(), rgb.contiguous(),
+                    u.expand(Rn, c.n_fine).contiguous())
+                coarse = CompositeOut(color, depth, acc, contrib, sdf_c)
+            else:
+                coarse = composite(alpha, sdf, rgb, z)
+            out = {
+                "rgb_coarse": coarse.color,
+                "depth_coarse": coarse.depth,
+                "acc_coarse": coarse.acc,
+            }
+            if not fine:
+                return out
 
-        if not use_pc:
-            # importance resampling over interior bins, evenly spaced u at eval
-            z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
-            z_fine = importance_z(coarse.contrib[..., 1:-1].detach(), z_mid, c.n_fine,
-                                  u=None if draws is None else draws.importance_u)
+            if not use_pc:
+                # importance resampling over interior bins, evenly spaced u at eval
+                z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
+                z_fine = importance_z(coarse.contrib[..., 1:-1].detach(), z_mid, c.n_fine,
+                                      u=None if draws is None else draws.importance_u)
 
-        # fine-pass cull (eval): march only the top K rays by coarse
-        # opacity; the others keep their coarse result
-        cull = not train and c.fine_topk_ratio < 1.0
-        if cull:
-            sel = top_k_indices(coarse.acc, max(1, int(Rn * c.fine_topk_ratio)))
-            take = lambda x: x[sel]                                    # noqa: E731
-        else:
-            take = lambda x: x                                         # noqa: E731
-        dirs_f = take(dirs)
-        Rf = dirs_f.shape[0]
-        # the reuse merge is exact only for a deterministic query (eval)
-        # that reads the coarse radiance in both passes
-        if c.reuse_coarse_eval and not train and not c.separate_cf:
-            # the eval query is deterministic: evaluate only the fine depths
-            # and merge the cached coarse values (exact)
-            z_f = take(z_fine)
-            pts = origin + dirs_f[:, None, :] * z_f[..., None]
-            view = dirs_f[:, None, :].expand(pts.shape)
-            alpha_f, sdf_f, rgb_f = self._eval_density(
-                pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, c.n_fine, fine=True)
-            v_c = torch.cat([take(alpha)[..., None], take(sdf)[..., None], take(rgb)], dim=-1)
-            v_f = torch.cat([
-                alpha_f.reshape(Rf, c.n_fine, 1),
-                sdf_f.reshape(Rf, c.n_fine, 1),
-                rgb_f.reshape(Rf, c.n_fine, 3),
-            ], dim=-1)
-            zs, vs = merge_sorted_payloads(take(z), z_f, v_c, v_f)
-            fine_out = composite(vs[..., 0], vs[..., 1], vs[..., 2:5], zs)
-        else:
-            n_all = c.n_coarse + c.n_fine
-            z_all = take(union_sorted_z(z, z_fine))
-            pts = origin + dirs_f[:, None, :] * z_all[..., None]
-            view = dirs_f[:, None, :].expand(pts.shape)
-            alpha_a, sdf_a, rgb_a = self._eval_density(
-                pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, n_all,
-                None if draws is None else draws.fine, fine=True)
-            fine_out = composite(alpha_a.reshape(Rf, n_all), sdf_a.reshape(Rf, n_all),
-                                 rgb_a.reshape(Rf, n_all, 3), z_all)
-        if not cull:
+            # fine-pass cull (eval): march only the top K rays by coarse
+            # opacity; the others keep their coarse result
+            cull = not train and c.fine_topk_ratio < 1.0
+            if cull:
+                sel = top_k_indices(coarse.acc, max(1, int(Rn * c.fine_topk_ratio)))
+                take = lambda x: x[sel]                                    # noqa: E731
+            else:
+                take = lambda x: x                                         # noqa: E731
+            dirs_f = take(dirs)
+            Rf = dirs_f.shape[0]
+            # the reuse merge is exact only for a deterministic query (eval)
+            # that reads the coarse radiance in both passes
+            reuse = c.reuse_coarse_eval and not train and not c.separate_cf
+            if reuse:
+                # the eval query is deterministic: evaluate only the fine
+                # depths and merge the cached coarse values (exact)
+                z_f = take(z_fine)
+            else:
+                z_f = take(union_sorted_z(z, z_fine))
+        S_f = z_f.shape[-1]
+        pts = origin + dirs_f[:, None, :] * z_f[..., None]
+        view = dirs_f[:, None, :].expand(pts.shape)
+        alpha_f, sdf_f, rgb_f = self._eval_density(
+            pts.reshape(-1, 3), view.reshape(-1, 3), feats, vb, S_f,
+            None if draws is None else draws.fine, fine=True)
+        alpha_f, sdf_f, rgb_f = (alpha_f.reshape(Rf, S_f), sdf_f.reshape(Rf, S_f),
+                                 rgb_f.reshape(Rf, S_f, 3))
+        with span("march.composite"):
+            if reuse:
+                v_c = torch.cat([take(alpha)[..., None], take(sdf)[..., None], take(rgb)],
+                                dim=-1)
+                v_f = torch.cat([alpha_f[..., None], sdf_f[..., None], rgb_f], dim=-1)
+                zs, vs = merge_sorted_payloads(take(z), z_f, v_c, v_f)
+                fine_out = composite(vs[..., 0], vs[..., 1], vs[..., 2:5], zs)
+            else:
+                fine_out = composite(alpha_f, sdf_f, rgb_f, z_f)
+            if not cull:
+                out.update({
+                    "rgb_fine": fine_out.color,
+                    "depth_fine": fine_out.depth,
+                    "acc_fine": fine_out.acc,
+                    "sdf_fine": fine_out.sdf,
+                })
+                return out
+            res = torch.cat([fine_out.color, fine_out.depth[:, None], fine_out.acc[:, None],
+                             fine_out.sdf[:, None]], dim=-1)                # (Rf, 6)
+            fallback = torch.cat([coarse.color, coarse.depth[:, None], coarse.acc[:, None],
+                                  coarse.sdf[:, None].to(res.dtype)], dim=-1)
+            res = fallback.index_copy(0, sel, res)
             out.update({
-                "rgb_fine": fine_out.color,
-                "depth_fine": fine_out.depth,
-                "acc_fine": fine_out.acc,
-                "sdf_fine": fine_out.sdf,
+                "rgb_fine": res[:, :3],
+                "depth_fine": res[:, 3],
+                "acc_fine": res[:, 4],
+                "sdf_fine": res[:, 5],
             })
             return out
-        res = torch.cat([fine_out.color, fine_out.depth[:, None], fine_out.acc[:, None],
-                         fine_out.sdf[:, None]], dim=-1)                # (Rf, 6)
-        fallback = torch.cat([coarse.color, coarse.depth[:, None], coarse.acc[:, None],
-                              coarse.sdf[:, None].to(res.dtype)], dim=-1)
-        res = fallback.index_copy(0, sel, res)
-        out.update({
-            "rgb_fine": res[:, :3],
-            "depth_fine": res[:, 3],
-            "acc_fine": res[:, 4],
-            "sdf_fine": res[:, 5],
-        })
-        return out
 
     # ------------------------------------------------------------- training
     def sample_patch_pixels(self, vb: ViewBatch, patch_index):

@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import span
 from .feat_sample import bilinear_coords
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -148,11 +149,12 @@ def multiview_dmap_onehot(xy, g, H, W, map_dtype=torch.bfloat16):
     in `multiview_dmap_onehot.launches`), CPU tensors to the plain version.
     """
     _check(xy, g, H, W, map_dtype)
-    if g.is_cuda:
-        return _launch(xy, g, H, W, map_dtype)
-    if g.device.type != "cpu":
-        raise ValueError(f"no kernel for device {g.device}")
-    return onehot_dmap_plain(xy, g, H, W, map_dtype)
+    with span("onehot_dmap"):
+        if g.is_cuda:
+            return _launch(xy, g, H, W, map_dtype)
+        if g.device.type != "cpu":
+            raise ValueError(f"no kernel for device {g.device}")
+        return onehot_dmap_plain(xy, g, H, W, map_dtype)
 
 
 multiview_dmap_onehot.launches = 0

@@ -17,6 +17,7 @@ import torch
 
 from ..geometry.cameras import camera_rays, pixel_grid
 from ..models.keypoint_nerf import KeypointNeRF, ViewBatch, top_k_indices
+from ..utils.profiling import span
 
 
 @torch.no_grad()
@@ -43,12 +44,13 @@ def render_rays_chunked(
             # camera origin and can composite to acc ~ 1
             idx = torch.arange(m + n_pad, device=d.device) % m
             d, nr, fr = d[idx], nr[idx], fr[idx]
-        outs = [
-            model.render_rays(feats, vb, origin, d[s:s + chunk], nr[s:s + chunk],
-                              fr[s:s + chunk], fine=fine)
-            for s in range(0, m + n_pad, chunk)
-        ]
-        return {k: torch.cat([o[k] for o in outs])[:m] for k in outs[0]}
+        outs = []
+        for s in range(0, m + n_pad, chunk):
+            with span("render.chunk"):
+                outs.append(model.render_rays(feats, vb, origin, d[s:s + chunk],
+                                              nr[s:s + chunk], fr[s:s + chunk], fine=fine))
+        with span("render.writeback"):
+            return {k: torch.cat([o[k] for o in outs])[:m] for k in outs[0]}
 
     cfg = model.cfg
     ratio = cfg.cull_empty_rays_ratio
@@ -71,29 +73,31 @@ def render_rays_chunked(
         )
     from .empty_cull import EMPTY_SCORE_THRESHOLD, empty_ray_scores
 
-    scores = empty_ray_scores(cfg, vb, origin, dirs, near, far, feats=feats)
-    k = max(1, min(n, -int(-n * ratio // 1)))
-    overflow = torch.clamp((scores > EMPTY_SCORE_THRESHOLD).sum() - k, min=0).float()
-    # jax.lax.top_k's order: the marched rays fall into the chunks they
-    # fall into in JAX, which the per-chunk top-k culls select from
-    sel = top_k_indices(scores, k)
+    with span("render.cull"):
+        scores = empty_ray_scores(cfg, vb, origin, dirs, near, far, feats=feats)
+        k = max(1, min(n, -int(-n * ratio // 1)))
+        overflow = torch.clamp((scores > EMPTY_SCORE_THRESHOLD).sum() - k, min=0).float()
+        # jax.lax.top_k's order: the marched rays fall into the chunks they
+        # fall into in JAX, which the per-chunk top-k culls select from
+        sel = top_k_indices(scores, k)
     out_m = march(dirs[sel], near[sel], far[sel])
-    # write-back: ONE packed row-gather; culled rays take the zero row
-    inv = torch.full((n,), k, dtype=torch.long, device=dirs.device)
-    inv[sel] = torch.arange(k, device=dirs.device)
-    keys = sorted(out_m)
-    cols = [out_m[kk].reshape(k, -1) for kk in keys]
-    packed = torch.cat([c.float() for c in cols], dim=-1)
-    packed = torch.cat([packed, packed.new_zeros((1, packed.shape[1]))], dim=0)
-    taken = packed[inv]                                   # (n, sum_widths)
-    out, off = {}, 0
-    for kk, c in zip(keys, cols):
-        w = c.shape[1]
-        out[kk] = taken[:, off:off + w].to(out_m[kk].dtype).reshape(
-            (n,) + out_m[kk].shape[1:])
-        off += w
-    out["cull_overflow"] = overflow.expand(n)
-    return out
+    with span("render.writeback"):
+        # ONE packed row-gather; culled rays take the zero row
+        inv = torch.full((n,), k, dtype=torch.long, device=dirs.device)
+        inv[sel] = torch.arange(k, device=dirs.device)
+        keys = sorted(out_m)
+        cols = [out_m[kk].reshape(k, -1) for kk in keys]
+        packed = torch.cat([c.float() for c in cols], dim=-1)
+        packed = torch.cat([packed, packed.new_zeros((1, packed.shape[1]))], dim=0)
+        taken = packed[inv]                                   # (n, sum_widths)
+        out, off = {}, 0
+        for kk, c in zip(keys, cols):
+            w = c.shape[1]
+            out[kk] = taken[:, off:off + w].to(out_m[kk].dtype).reshape(
+                (n,) + out_m[kk].shape[1:])
+            off += w
+        out["cull_overflow"] = overflow.expand(n)
+        return out
 
 
 @torch.no_grad()

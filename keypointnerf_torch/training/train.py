@@ -36,6 +36,7 @@ import torch
 from ..device import deterministic_training
 from ..models.keypoint_nerf import KeypointNeRF, ViewBatch
 from ..models.vgg import VGG19Features
+from ..utils.profiling import span
 from .draws import TrainDraws
 from .losses import LossConfig, compute_losses
 
@@ -213,20 +214,23 @@ def step_without_mode(model: KeypointNeRF, loss_cfg: LossConfig, state: TrainSta
     (chip_smoke.py times the mode's cost against it)."""
     params = list(model.parameters())
     totals, errs = [], []
-    for vb, d in zip(batch, draws, strict=True):
-        total, err = compute_losses(model(vb, train=True, draws=d), loss_cfg, state.vgg)
-        totals.append(total)
-        errs.append(err)
-    total = torch.stack(totals).mean()
-    grads = torch.autograd.grad(total, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    err = {k: torch.stack([e[k] for e in errs]).mean().detach() for k in errs[0]}
+    with span("step.forward"):
+        for vb, d in zip(batch, draws, strict=True):
+            total, err = compute_losses(model(vb, train=True, draws=d), loss_cfg, state.vgg)
+            totals.append(total)
+            errs.append(err)
+        total = torch.stack(totals).mean()
+        err = {k: torch.stack([e[k] for e in errs]).mean().detach() for k in errs[0]}
+    with span("step.backward"):
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     if group is not None:
         from ..parallel import train_parallel
 
         grads, err = train_parallel.reduce_step(grads, err, group)
-    err["grad_norm"] = global_norm(grads).detach()
-    apply_gradients(state, params, grads)
+    with span("step.optimizer"):
+        err["grad_norm"] = global_norm(grads).detach()
+        apply_gradients(state, params, grads)
     state.step += 1
     return err
 

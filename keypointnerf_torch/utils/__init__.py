@@ -1,15 +1,31 @@
-from .checkpoints import CheckpointManager
-from .config import (
-    DataConfig,
-    ExperimentConfig,
-    get_model,
-    load_config,
-    save_config,
-)
-from .convert import icon_state_dict_from_jax, state_dict_from_jax, vgg_params_from_jax
-from .import_reference import load_reference_checkpoint, reference_state_dict
-from .metrics_writer import MetricsWriter
-from .profiling import StepTimer, annotate, check_finite, enable_nan_checks, trace
+import importlib
+
+from .profiling import StepTimer, check_finite, enable_nan_checks, span, trace
+
+# the rest is imported on first use: the models, the renderer, the training
+# step and the kernels' wrappers import `span` from this package, and
+# utils/config.py imports them back
+_LAZY = {
+    "CheckpointManager": "checkpoints",
+    "DataConfig": "config",
+    "ExperimentConfig": "config",
+    "get_model": "config",
+    "load_config": "config",
+    "save_config": "config",
+    "icon_state_dict_from_jax": "convert",
+    "state_dict_from_jax": "convert",
+    "vgg_params_from_jax": "convert",
+    "load_reference_checkpoint": "import_reference",
+    "reference_state_dict": "import_reference",
+    "MetricsWriter": "metrics_writer",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "CheckpointManager",
@@ -17,7 +33,6 @@ __all__ = [
     "ExperimentConfig",
     "MetricsWriter",
     "StepTimer",
-    "annotate",
     "check_finite",
     "enable_nan_checks",
     "get_model",
@@ -26,6 +41,7 @@ __all__ = [
     "load_reference_checkpoint",
     "reference_state_dict",
     "save_config",
+    "span",
     "state_dict_from_jax",
     "trace",
     "vgg_params_from_jax",

@@ -5,14 +5,40 @@ Port of `keypointnerf_tpu/utils/profiling.py`, one to one:
   * `trace(logdir)` — `torch.profiler` over the block (CPU and, on a card,
     CUDA activity), exported as a Chrome trace to
     `{logdir}/trace.json` (Perfetto or chrome://tracing read it);
-  * `annotate(name)` — a named range in that trace
-    (`torch.profiler.record_function`);
+  * `span(name)` — the range `kpnerf::<name>` in that trace while a
+    profiler records, and a shared no-op context otherwise;
   * `enable_nan_checks()` — autograd's anomaly mode, which names the
     forward operation whose backward produced a NaN;
   * `check_finite(tree)` — whether every tensor of a nested structure is
     finite (a 0-d bool tensor, on the tensors' device);
   * `StepTimer` — a sliding window of step times, with rays / points a
     second.
+
+The layered trace: profile a render or a training step with `trace`,
+
+    from keypointnerf_torch.utils import trace
+    with trace("kpn_trace"):
+        out = render_image(model, vb, height=512, width=512, chunk=8192)
+        torch.cuda.synchronize()
+
+and open `kpn_trace/trace.json` in Perfetto (ui.perfetto.dev): the
+program's `kpnerf::` spans lie over the CUDA kernels they launched on one
+clock. The spans (a `torch.profiler.profile` of the caller's own, or the
+benchmark's traced slice, records the same ones):
+
+  render   `kpnerf::encode` (KeypointNeRF.encode), `render.cull` (the
+           empty-ray scores and the top-k of the rays marched),
+           `render.chunk` (one chunk's `render_rays`), `render.writeback`
+           (the chunks' outputs joined; again for the culled write-back)
+  a chunk  `query.lookup` (projection and every map lookup), `query.geo`
+           (validity, border weights, spatial encoding, geometry MLP),
+           `query.ibr` (the IBR color head), each once a query, two
+           queries a chunk; `march.composite` (the coarse composite and
+           the fine depths; then the fine composite and its write)
+  a step   `step.forward` (the model's forward and the losses),
+           `step.backward` (the gradients), `step.optimizer` (the norm
+           and the update); `onehot_dmap` (K1, the map gradient, on
+           autograd's thread)
 """
 from __future__ import annotations
 
@@ -22,6 +48,9 @@ import time
 from typing import Dict, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as autograd_profiler
+
+from ..device import tracing
 
 
 @contextlib.contextmanager
@@ -36,9 +65,19 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """A named range that shows in `trace`'s output."""
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The range `kpnerf::<name>` of the program's layer `name`: a
+    `record_function` while a profiler records (`trace`, or any
+    `torch.profiler.profile`), else one shared no-op context, so a span
+    costs one check when nothing records. Inside a torch.compile /
+    torch.export trace it is the no-op, and no profiler op enters the
+    traced graph."""
+    if not autograd_profiler._is_profiler_enabled or tracing():
+        return _OFF
+    return torch.profiler.record_function("kpnerf::" + name)
 
 
 def enable_nan_checks(enable: bool = True) -> None:

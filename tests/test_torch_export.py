@@ -83,8 +83,10 @@ try:
     raised = False
 except Exception:
     raised = True
-ops = sorted({str(n.target) for n in serve.program.graph.nodes if "kpnerf" in str(n.target)})
+targets = {str(n.target) for n in serve.program.graph.nodes}
+ops = sorted(t for t in targets if "kpnerf" in t)
 print(json.dumps({"raised": raised, "ops": ops,
+                  "profiler": sorted(t for t in targets if "profiler" in t),
                   "models": [m for m in sys.modules if m.startswith("keypointnerf_torch.models")],
                   "jax": "jax" in sys.modules}))
 """
@@ -137,9 +139,11 @@ def test_artifact_bit_equal_to_eager_render(world):
 
 def test_fresh_process_needs_only_the_ops(world):
     """The consumer imported load_render and the ops, never the model nor
-    JAX; a wrong input shape raised there."""
+    JAX; a wrong input shape raised there. The graph holds no profiler op
+    (the program's spans are no-ops in an export's trace)."""
     c = world["consumer"]
     assert c["models"] == [] and not c["jax"]
+    assert c["profiler"] == []
     assert c["raised"]
 
 
