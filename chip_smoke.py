@@ -37,7 +37,11 @@ Phases (any failure exits nonzero):
      keypoints and 2 levels) on the wmma route, outputs and gradients; and
      both forms of `models/mlp.py:dot_f32` in bf16 (inference: torch.mm
      with out_dtype=float32; autograd: the f32 product of bf16-rounded
-     operands) against an f64 product, with their times; K1 with f32 and
+     operands) against an f64 product, with their times; dense_act (the
+     module path's dense layer in one launch) at each of a coarse render
+     query's seven layers against its plain version, timed beside its byte
+     bound, and the whole dense stack beside its bound, the plain versions
+     and the stack as the module path composed it before; K1 with f32 and
      bf16 cotangents, timed at the fine and the coarse query's N with each
      pass's device time; K6 beside the device time and a call's time of an
      empty kernel, the floor under both, and again with falling cdfs (its
@@ -63,7 +67,8 @@ Phases (any failure exits nonzero):
      port's load_config / get_model (its model section checked equal to
      fast_preset(), its seeded weights to the strict camera's), renders the
      same 512² camera at chunk 8192: the fused map halved to 3 x 256² x 84
-     bf16, finite outputs, cull_overflow == 0, none of K1-K6 launched,
+     bf16, finite outputs, cull_overflow == 0, none of K1-K6 launched and
+     dense_act 7 times a query (112),
      each query's points (the fine cut's int(8192 * 0.75) rays x 64) and
      fused-map lookup points (the lerp's 33 anchors of 64 samples)
      counted, culled == unculled bit for bit with the top-k cuts off;
@@ -1627,6 +1632,138 @@ def check_dot_f32(dev) -> None:
         raise SystemExit("dot_f32 does not keep the f32 sum")
 
 
+
+def composed_stack(mlp, sp, feats, mask, weight):
+    """The geometry MLP as the module path composed it before `dense_act`:
+    each layer's `LinearSlot` (dot_f32 per input block, the partial sums,
+    the bias) and softplus100 as separate passes, f32 between layers; a
+    yardstick the port no longer calls."""
+    from keypointnerf_torch.models.mlp import masked_pool, softplus100
+
+    def stack(layers, x, skips):
+        n = len(layers)
+        for i, slot in enumerate(layers):
+            if i in skips:
+                x = (x, skips[i])
+            x = slot(x)
+            x = x if i == n - 1 else softplus100(x)
+        return x
+
+    l1 = mlp.layers1
+    lv = stack(l1.layers, sp, {i: feats[j] for i, j in l1.skip_idx.items()})
+    lf, valid = masked_pool(lv, mask, weight, mlp.pool_types)
+    return stack(mlp.layers2.layers, lf, {}), valid, lv, lf
+
+
+def _bf16_steps(a, b):
+    """Per entry, how many bf16 values apart a and b lie (a subnormal's
+    step counts as one ulp too)."""
+    def ordered(t):
+        bits = t.view(torch.int16).int() & 0xFFFF
+        mag = bits & 0x7FFF
+        return torch.where(bits >= 0x8000, -mag, mag)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def check_dense_act(dev) -> dict:
+    """`dense_act` (one dense layer of the module path's geometry MLP in one
+    launch) at a coarse render query of the zju_fast configuration: V = 3,
+    N = 8192 rays x 64 samples; the encoding from query-shaped points, the
+    image features slices of an 84-channel bf16 map row as the fused map
+    hands them over. Each of the seven layers' own inputs (captured from
+    the module path's forward) through the kernel against the plain
+    version (bf16 outputs within one ulp, f32 within K 2^-23 of
+    sum |x| |w| + |b|, two launches bit-equal), with its time, the plain
+    version's and the byte bound (its inputs as handed over read once, its
+    output written once); then the whole stack: the seven kernels' sum
+    against the sum of their bounds, the module path's forward (the seven
+    kernels, the casts, the weight-norm folds and the pool) beside the
+    same stack composed as before (`composed_stack`, the yardstick) and the
+    plain versions. Returns the kernels-line entry."""
+    import keypointnerf_torch.models.mlp as mlp_mod
+    from keypointnerf_torch.ops import dense_act as da
+    from keypointnerf_torch.ops.fused_geo_mlp import rel_z_decay_encoding
+
+    V, N = 3, 8192 * 64
+    bf = torch.bfloat16
+    mlp = seeded_geo_mlp(dev)
+    ins = geo_mlp_inputs(dev, N, seed=11)
+    sp = rel_z_decay_encoding(ins["pts_cam"], ins["kpt_cam"], 3, 0.1, 1.0).to(bf)
+    fmap = torch.cat([ins["f0"], ins["f1"], torch.zeros(V, N, 12, device=dev)], -1).to(bf)
+    feats = [fmap[..., :64], fmap[..., 64:72]]
+    mask, weight = ins["mask"].to(bf), ins["weight"].to(bf)
+    calls, real = [], mlp_mod.fused_dense_act
+
+    def capturing(xs, w, b, softplus, out_dtype):
+        calls.append((xs, w, b, softplus, out_dtype))
+        return real(xs, w, b, softplus, out_dtype)
+
+    mlp_mod.fused_dense_act = capturing
+    try:
+        with torch.no_grad():
+            got = mlp(sp, feats, mask, weight)
+    finally:
+        mlp_mod.fused_dense_act = real
+    names = ("l1.0", "l1.1", "l1.2", "l1.3", "l2.0", "l2.1", "l2.2")
+    if len(calls) != len(names):
+        raise SystemExit(f"the module path called dense_act {len(calls)} times, not 7")
+    layers, worst = {}, 0.0
+    for name, (xs, w, b, act, odt) in zip(names, calls):
+        k1 = da.fused_dense_act(xs, w, b, act, odt)
+        k2 = da.fused_dense_act(xs, w, b, act, odt)
+        ref = da.dense_act_plain(xs, w, b, act, odt)
+        torch.cuda.synchronize()
+        K = w.shape[1]
+        if odt == bf:
+            err = float(_bf16_steps(k1, ref).max())
+            ok = err <= 1
+            what = f"{int(err)} bf16 ulp at most (bound 1)"
+        else:
+            x = torch.cat([a.to(bf).float() for a in xs], -1)
+            scale = x.abs() @ w.to(bf).float().abs().T + b.abs()
+            err = float(((k1 - ref).abs() / scale).max())
+            ok = err <= K * 2.0 ** -23
+            what = f"{err:.3e} of sum |x||w| + |b| at most (bound K 2^-23 = {K * 2.0 ** -23:.3e})"
+        same = torch.equal(k1, k2)
+        ms = cuda_ms(lambda: da.fused_dense_act(xs, w, b, act, odt), iters=20)
+        plain_ms = cuda_ms(lambda: da.dense_act_plain(xs, w, b, act, odt), iters=5)
+        rows = k1.numel() // k1.shape[-1]
+        n_bytes = rows * (sum(a.shape[-1] * a.element_size() for a in xs)
+                          + w.shape[0] * k1.element_size())
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        layers[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "err": err}
+        print(f"dense_act {name} ({rows} rows, inputs {[a.shape[-1] for a in xs]} "
+              f"{[str(a.dtype)[6:] for a in xs]}, {w.shape[0]} outputs "
+              f"{str(odt)[6:]}, {'softplus100' if act else 'no activation'}): {what}; two "
+              f"launches bit-equal {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({n_bytes} bytes; {ms / bound:.2f}x)", flush=True)
+        if not (ok and same and bool(torch.isfinite(k1).all())):
+            raise SystemExit(f"dense_act disagrees with its plain version at {name}")
+        worst = max(worst, err if odt == bf else 0.0)
+    stack_ms = sum(v["ms"] for v in layers.values())
+    stack_bound = sum(v["bound_ms"] for v in layers.values())
+    with torch.no_grad():
+        module_ms = cuda_ms(lambda: mlp(sp, feats, mask, weight), iters=10)
+        composed_ms = cuda_ms(lambda: composed_stack(mlp, sp, feats, mask, weight), iters=5)
+        ref = composed_stack(mlp, sp, feats, mask, weight)
+    plain_ms = sum(v["plain_ms"] for v in layers.values())
+    dev_out = float((got[0] - ref[0]).abs().max()) / float(ref[0].abs().max())
+    print(f"dense_act, one coarse query's whole dense stack (V = {V}, N = {N}): the seven "
+          f"kernels {stack_ms:.4f} ms against their bound {stack_bound:.4f} ms "
+          f"({stack_ms / stack_bound:.2f}x; at most 3x), the plain versions {plain_ms:.4f} ms; "
+          f"the module path's forward (kernels, casts, weight-norm folds, pool) "
+          f"{module_ms:.4f} ms against the stack composed as before {composed_ms:.4f} ms "
+          f"(yardstick; the port no longer calls it); out against the composed stack "
+          f"{dev_out:.3e} of its largest entry", flush=True)
+    if stack_ms > 3 * stack_bound:
+        raise SystemExit("the dense stack takes more than 3x its byte bound")
+    return {
+        "name": "dense_act", "route": "cuda", "source": "keypointnerf_torch/csrc/dense_act.cu",
+        "replaces": None, "max_abs_err": worst, "ms": stack_ms, "plain_ms": plain_ms,
+        "bound_ms": stack_bound, "bound_by": "bytes", "library_ms": composed_ms,
+        "module_path_ms": module_ms, "layers": layers,
+    }
+
 def orbit_camera(ang):
     from keypointnerf_torch.data import look_at
 
@@ -2172,7 +2309,8 @@ def kernel_wrappers() -> dict:
             "fused_geo_mlp": ops.geo_mlp_apply,
             "sp_fused_geo_mlp": ops.sp_geo_mlp_apply,
             "dma_gather": ops.multiview_bilinear_sample_dma,
-            "composite_importance": ops.fused_composite_importance}
+            "composite_importance": ops.fused_composite_importance,
+            "dense_act": ops.fused_dense_act}
 
 
 @contextlib.contextmanager
@@ -2265,8 +2403,11 @@ def render_fast(dev, strict) -> dict:
           f"rays in {n_chunks} chunks; kernel launches {launched or 'none'}", flush=True)
     if overflow != 0.0:
         raise SystemExit("empty-ray cull budget exceeded on the fast render")
-    if launched:
-        raise SystemExit(f"the fast path launched kernels it must not: {launched}")
+    # every layer of the geometry MLP as one dense_act launch: 7 a query,
+    # coarse and fine in every chunk; none of K1-K6
+    want = {"dense_act": 7 * 2 * n_chunks}
+    if launched != want:
+        raise SystemExit(f"the fast path launched {launched}, not {want}")
 
     # the fine cut marches int(chunk * 0.75) rays of each chunk, and every
     # query looks the fused map up at the 33 anchors of its 64 samples
@@ -2323,7 +2464,7 @@ def render_fast(dev, strict) -> dict:
     print(f"fast vs strict 512² camera, same run: {n_rays / seconds:.1f} vs "
           f"{n_rays / strict['seconds']:.1f} rays/s, {device_ms:.3f} vs "
           f"{strict['device_ms']:.3f} ms of kernel time", flush=True)
-    return dict(exp=exp, model=model, feats=feats, vb=vb)
+    return dict(exp=exp, model=model, feats=feats, vb=vb, dense_act=launched["dense_act"])
 
 
 def render_fast_orbit(dev, ctx) -> None:
@@ -4307,7 +4448,8 @@ sync()
 wrappers = {"onehot_bilinear": ops.multiview_onehot_bilinear_sample,
             "fused_geo_mlp": ops.geo_mlp_apply, "sp_fused_geo_mlp": ops.sp_geo_mlp_apply,
             "dma_gather": ops.multiview_bilinear_sample_dma,
-            "composite_importance": ops.fused_composite_importance}
+            "composite_importance": ops.fused_composite_importance,
+            "dense_act": ops.fused_dense_act}
 for w in wrappers.values():
     w.launches = 0
 t0 = time.perf_counter()
@@ -4735,6 +4877,8 @@ def main() -> int:
         phase("K4 / K5 on the wmma route")
         check_geo_mlp_wmma(dev)
         check_dot_f32(dev)
+        phase("dense_act: the module path's dense layers, one launch each")
+        entries["dense_act"] = check_dense_act(dev)
         print(f"phase kernels {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "render" in todo:
@@ -4762,6 +4906,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase("full-width fast render (configs/zju_fast.json)")
         fast = render_fast(dev, strict)
+        launches["dense_act"] = fast["dense_act"]
         del strict
         phase("fast preset: orbit of 4 cameras at 256² (render_cameras_scanned)")
         render_fast_orbit(dev, fast)

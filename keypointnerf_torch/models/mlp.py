@@ -14,6 +14,14 @@ formed, each input block is contracted with its row block of w and the
 partial products are summed in order; the result is f32 plus an f32 bias.
 With a bf16 compute dtype the inputs and w are rounded to bf16 first and
 the sum is kept in f32 (`dot_f32`).
+
+At inference (no gradient needed) with a bf16 compute dtype, `MLPUNet` and
+`MLP` run each layer as one call of `ops.fused_dense_act` (on the card a
+hand-written kernel: the product, the bias, softplus100 and the store in
+one launch, hidden outputs stored in bf16, which the next layer rounds
+them to anyway) where the widths fit the kernel and the nonlinearity is
+softplus100 or none; elsewhere, and always under autograd, layer by layer
+as above.
 """
 from __future__ import annotations
 
@@ -23,7 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.dense import dot_f32, softplus100  # noqa: F401  (the model's numerics)
+from ..ops.dense import dot_f32, linear_blocks, softplus100  # noqa: F401  (the model's numerics)
+from ..ops.dense_act import fused_dense_act, takes
 
 
 def abs_sel(x):
@@ -81,13 +90,37 @@ class LinearSlot(nn.Module):
 
     def forward(self, x):
         xs = x if isinstance(x, (list, tuple)) else (x,)
-        w = self.linear.weight
-        out, off = None, 0
-        for a in xs:
-            d = dot_f32(a, w[:, off : off + a.shape[-1]], self.dtype)
-            off += a.shape[-1]
-            out = d if out is None else out + d
-        return out + self.linear.bias
+        return linear_blocks(xs, self.linear.weight, self.linear.bias, self.dtype)
+
+
+def _fusable(slots, in_widths, nl, dtype) -> bool:
+    """Whether every layer of a stack can run as `ops.fused_dense_act`: bf16
+    products, softplus100 or no nonlinearity, widths the kernel takes
+    (hidden outputs in bf16, the last in f32)."""
+    if dtype != torch.bfloat16 or nl not in (softplus100, None):
+        return False
+    n = len(slots)
+    return all(takes(widths, slot.linear.bias.shape[0],
+                     torch.bfloat16 if i < n - 1 else torch.float32)
+               for i, (slot, widths) in enumerate(zip(slots, in_widths)))
+
+
+def _needs_grad(module, tensors) -> bool:
+    return torch.is_grad_enabled() and (
+        any(t.requires_grad for t in tensors) or
+        any(p.requires_grad for p in module.parameters()))
+
+
+def _layer(slot, x, last: bool, nl, fused: bool):
+    """One layer and its nonlinearity (none after the last layer); `fused`:
+    both in one `ops.fused_dense_act` call, a hidden layer's output in bf16."""
+    if fused:
+        xs = list(x) if isinstance(x, (list, tuple)) else [x]
+        return fused_dense_act(xs, slot.linear.weight, slot.linear.bias,
+                               not last and nl is not None,
+                               torch.float32 if last else torch.bfloat16)
+    x = slot(x)
+    return x if last or nl is None else nl(x)
 
 
 class MLP(nn.Module):
@@ -107,16 +140,18 @@ class MLP(nn.Module):
                        dims[i + 1], weight_norm and i < n - 1, dtype)
             for i in range(n)
         )
+        self.fusable = _fusable(self.layers, [
+            (dims[i], dims[0]) if i in self.skip_layers else (dims[i],) for i in range(n)],
+            self.nl, dtype)
 
     def forward(self, x):
         x0 = x
         n = len(self.layers)
+        fused = self.fusable and not _needs_grad(self, (x,))
         for i, layer in enumerate(self.layers):
             if i in self.skip_layers:
                 x = (x, x0)
-            x = layer(x)
-            if i < n - 1 and self.nl is not None:
-                x = self.nl(x)
+            x = _layer(layer, x, i == n - 1, self.nl, fused)
         return self.last_nl(x) if self.last_nl is not None else x
 
 
@@ -141,15 +176,17 @@ class MLPUNet(nn.Module):
             )
             for i in range(n)
         )
+        self.fusable = _fusable(self.layers, [
+            (dims[i], skip_dims[self.skip_idx[i]]) if i in self.skip_idx else (dims[i],)
+            for i in range(n)], self.nl, dtype)
 
     def forward(self, x, feats):
         n = len(self.layers)
+        fused = self.fusable and not _needs_grad(self, (x, *feats))
         for i, layer in enumerate(self.layers):
             if i in self.skip_idx:
                 x = (x, feats[self.skip_idx[i]])
-            x = layer(x)
-            if i < n - 1 and self.nl is not None:
-                x = self.nl(x)
+            x = _layer(layer, x, i == n - 1, self.nl, fused)
         return x
 
 

@@ -1,4 +1,5 @@
 from .composite_importance import composite_importance_plain, fused_composite_importance
+from .dense_act import dense_act_plain, fused_dense_act
 from .dma_gather import dma_gather_plain, multiview_bilinear_sample_dma
 from .feat_sample import (
     bilinear_sample,
@@ -18,9 +19,11 @@ from .onehot_dmap import multiview_dmap_onehot, onehot_dmap_plain
 __all__ = [
     "bilinear_sample",
     "composite_importance_plain",
+    "dense_act_plain",
     "dma_gather_plain",
     "fold_weight_norm",
     "fused_composite_importance",
+    "fused_dense_act",
     "geo_mlp_apply",
     "mlp_stack_plain",
     "multiview_bilinear_sample",

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # every kernel source of the port, by name (csrc/<name>.cu)
 KERNELS = ("onehot_bilinear", "onehot_dmap", "fused_geo_mlp", "dma_gather",
-           "composite_importance")
+           "composite_importance", "dense_act")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -40,3 +40,15 @@ def dot_f32(x, w, dtype):
         out = torch.mm(a, w.to(dtype).T, out_dtype=torch.float32)
         return out.reshape(x.shape[:-1] + (w.shape[0],))
     return F.linear(x.to(dtype).float(), w.to(dtype).float())
+
+
+def linear_blocks(xs, w, bias, dtype):
+    """A dense layer over input blocks side by side (a skip concat folded
+    into the product): each block's `dot_f32` with its columns of w, the
+    partial products summed in order, then the f32 bias."""
+    out, off = None, 0
+    for a in xs:
+        d = dot_f32(a, w[:, off : off + a.shape[-1]], dtype)
+        off += a.shape[-1]
+        out = d if out is None else out + d
+    return out + bias

@@ -1,6 +1,7 @@
 """The port's lookup kernels (K2, K3), the fused geometry MLP's bf16
-routes (K4 / K5, wgmma and wmma), the map gradient K1 and the fused
-composite K6 against their plain versions on a CUDA card. Every test here
+routes (K4 / K5, wgmma and wmma), the map gradient K1, the fused
+composite K6 and the module path's dense layer (`dense_act`) against their
+plain versions on a CUDA card. Every test here
 needs the card (marker `cuda`) and skips without one.
 
 This file imports nothing of JAX or Flax, so it runs where the JAX
@@ -16,7 +17,9 @@ entry, `valid` exact; K1 within 1e-5 of max|dmap| and, as bf16, one ulp
 except near zero (also at the fused map's 512² x 84 training shape), and
 two launches on the same inputs bit-equal (at the training steps' shapes
 and at a hot-cell input, held there against an f64 sum); K6 1e-6 (depth
-and sdf 5e-6), z_fine within two bins.
+and sdf 5e-6), z_fine within two bins; dense_act's bf16 outputs within one
+bf16 ulp (the two sum the same terms in other orders), its f32 outputs within K 2^-23 (sum |x| |w| + |b|) (two f32
+sums of the same K terms in different orders), two launches bit-equal.
 The channel counts reach every piece width of the
 lookup kernels (`feat_sample.piece_bytes`): 16 bytes (8 bf16, 84 or 8
 f32), 8 bytes (84 bf16, 6 f32) and single channels (37, 5); a map offset
@@ -388,3 +391,105 @@ def test_k6_kernel_matches_plain_on_card(dev, R, S, F, kind, offset):
         held = ((cdf[:, None, :] - ins[4][:, :, None]).abs() >= 1e-5).all(dim=-1)
         assert held.float().mean().item() > 0.9
     assert (dz / widest)[held].max().item() <= 2.0 and dz[held].mean().item() <= 2e-5
+
+
+# ------------------------------------------------------------------ dense_act
+# the render's seven dense layers (input blocks, outputs, softplus100, output
+# dtype): layers1 232 -> 128 in two blocks (the encoding, then the fused
+# map's coarse feature), 128 -> 128, 136 -> 120 (the hidden state, then the
+# hd feature), 120 -> 64 f32 (the latent the pool reads); layers2 128 -> 64
+# (the f32 pooled latent), 64 -> 64, 64 -> 2 f32
+DENSE_LAYERS = {
+    "l1.0": ((168, 64), 128, True, torch.bfloat16),
+    "l1.1": ((128,), 128, True, torch.bfloat16),
+    "l1.2": ((128, 8), 120, True, torch.bfloat16),
+    "l1.3": ((120,), 64, False, torch.float32),
+    "l2.0": ((128,), 64, True, torch.bfloat16),
+    "l2.1": ((64,), 64, True, torch.bfloat16),
+    "l2.2": ((64,), 2, False, torch.float32),
+}
+
+
+def _bf16_steps(a, b):
+    """Per entry, how many bf16 values apart a and b (both bf16) lie: one
+    step is one ulp, a subnormal's too."""
+    def ordered(t):
+        bits = t.view(torch.int16).int() & 0xFFFF
+        mag = bits & 0x7FFF
+        return torch.where(bits >= 0x8000, -mag, mag)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _dense_inputs(dev, widths, n_out, rows, seed=5):
+    """He-scaled f32 weights, small biases, and the blocks as the render
+    hands them over: a second block a slice of an 84-channel bf16 row, as
+    the fused feature map's are (rows only 8-byte aligned); the pooled
+    latent (l2.0's input) in f32; the rest contiguous bf16."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    K = sum(widths)
+    w = torch.randn(n_out, K, generator=gen, device=dev) * (2.0 / K) ** 0.5
+    bias = 0.05 * torch.randn(n_out, generator=gen, device=dev)
+    x = torch.randn(rows, widths[0], generator=gen, device=dev)
+    xs = [x if (widths, n_out) == ((128,), 64) else x.to(torch.bfloat16)]
+    if len(widths) > 1:
+        fmap = torch.randn(rows, 84, generator=gen, device=dev).to(torch.bfloat16)
+        off = 0 if widths[1] == 64 else 64
+        xs.append(fmap[:, off:off + widths[1]])
+    return xs, w, bias
+
+
+@pytest.mark.parametrize("rows", [1_572_864, 100_003])
+@pytest.mark.parametrize("layer", list(DENSE_LAYERS))
+def test_dense_act_kernel_matches_plain(dev, layer, rows):
+    from keypointnerf_torch.ops import dense_act as da
+
+    widths, n_out, softplus, out_dtype = DENSE_LAYERS[layer]
+    xs, w, bias = _dense_inputs(dev, widths, n_out, rows)
+    before = da.fused_dense_act.launches
+    got = da.fused_dense_act(xs, w, bias, softplus, out_dtype)
+    again = da.fused_dense_act(xs, w, bias, softplus, out_dtype)
+    ref = da.dense_act_plain(xs, w, bias, softplus, out_dtype)
+    torch.cuda.synchronize()
+    assert da.fused_dense_act.launches == before + 2
+    assert got.shape == ref.shape == (rows, n_out) and got.dtype == out_dtype
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    if out_dtype == torch.bfloat16:
+        assert int(_bf16_steps(got, ref).max()) <= 1
+    else:
+        K = sum(widths)
+        x = torch.cat([a.to(torch.bfloat16).float() for a in xs], -1)
+        scale = x.abs() @ w.to(torch.bfloat16).float().abs().T + bias.abs()
+        assert bool(((got - ref).abs() <= K * 2.0 ** -23 * scale).all())
+
+
+def test_dense_act_launches_per_frame_and_step(dev):
+    """7 launches a query, coarse and fine, in every chunk of a fast render:
+    28 for a 256² orbit frame (2 chunks of 8192 rays after the 0.25 cull),
+    112 for a 512² frame (8); none in a training step (autograd)."""
+    from pathlib import Path
+
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.models import KeypointNeRF, VGG19Features, ViewBatch
+    from keypointnerf_torch.ops import dense_act as da
+    from keypointnerf_torch.render import render_image
+    from keypointnerf_torch.training import TrainDraws, create_train_state, train_step_fn
+    from keypointnerf_torch.utils import load_config
+
+    configs = Path(__file__).resolve().parents[1] / "configs"
+    vb = ViewBatch.from_numpy(make_sample(SyntheticConfig(image_size=512, n_views=4), seed=0),
+                              device=dev)
+    model = KeypointNeRF(load_config(str(configs / "zju_fast.json")).model, device=dev, seed=0)
+    for size, want in ((256, 28), (512, 112)):
+        before = da.fused_dense_act.launches
+        render_image(model, vb, height=size, width=size, chunk=8192)
+        assert da.fused_dense_act.launches - before == want, size
+    del model
+    recipe = load_config(str(configs / "zju.json"))
+    model = KeypointNeRF(recipe.model, device=dev, seed=0)
+    state = create_train_state(model, recipe.optim, VGG19Features(device=dev, seed=42))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = da.fused_dense_act.launches
+    train_step_fn(model, recipe.loss, state, vb, TrainDraws.sample(recipe.model, vb, gen))
+    torch.cuda.synchronize()
+    assert da.fused_dense_act.launches == before

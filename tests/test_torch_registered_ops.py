@@ -84,6 +84,53 @@ def test_geo_mlp_ops(dt):
         assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("softplus,out_dtype", [(True, torch.bfloat16), (False, torch.float32)])
+def test_dense_act_op(softplus, out_dtype):
+    """dense_act: a bf16 block and an f32 one (rounded to bf16 by the op),
+    a hidden layer's epilogue (softplus100, bf16 out) and a last layer's."""
+    rs = np.random.default_rng(3)
+    t = lambda *shape: torch.from_numpy(rs.normal(size=shape).astype(np.float32))  # noqa: E731
+    args = ([t(V, N, 24).to(torch.bfloat16), t(V, N, 8)], 0.2 * t(16, 32), 0.1 * t(16),
+            softplus, out_dtype)
+    torch.library.opcheck(torch.ops.kpnerf.dense_act.default, args, test_utils=UTILS)
+    got = ops.fused_dense_act(*args)
+    assert got.shape == (V, N, 16) and got.dtype == out_dtype
+    assert torch.equal(got, ops.dense_act_plain(*args))
+
+
+def test_dense_act_exports():
+    """A bf16 geometry MLP exported at inference holds the op once a layer
+    (the fake implementation's shapes and dtypes carry the trace), and the
+    exported program gives the eager module's bits."""
+    from keypointnerf_torch.models.mlp import GeoFusionMLP
+
+    mlp = GeoFusionMLP((48, 32, 32, 24, 16), (32, 16, 16, 2), (16, 8), (0, 2),
+                       dtype=torch.bfloat16)
+    rs = np.random.default_rng(4)
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.copy_(torch.from_numpy(rs.normal(0.0, 0.3, p.shape).astype(np.float32)))
+
+    class Head(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.mlp = mlp
+
+        def forward(self, sp, f0, f1, mask, weight):
+            return self.mlp(sp, [f0, f1], mask, weight)[0]
+
+    t = lambda *shape: torch.from_numpy(rs.normal(size=shape).astype(np.float32))  # noqa: E731
+    mask = torch.ones(V, N, 1)
+    args = tuple(a.to(torch.bfloat16) for a in (t(V, N, 48), t(V, N, 16), t(V, N, 8), mask,
+                                                mask / V))
+    with torch.no_grad():
+        ep = torch.export.export(Head(), args)
+        want = Head()(*args)
+    ops_called = [n.target for n in ep.graph.nodes if n.op == "call_function"]
+    assert ops_called.count(torch.ops.kpnerf.dense_act.default) == 7
+    assert torch.equal(ep.module()(*args), want)
+
+
 def test_dmap_is_not_registered():
     """K1 (the map gradient, training only) is never exported."""
     assert not hasattr(torch.ops.kpnerf, "onehot_dmap")

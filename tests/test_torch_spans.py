@@ -72,9 +72,12 @@ def _render(model, vb):
 
 
 def _profiled(fn):
+    """fn()'s result and the program's spans under the profiler: the
+    `kpnerf::` ranges the program opens (user annotations), not the events
+    of the registered ops it calls (`kpnerf::dense_act`, ...)."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = fn()
-    spans = [e for e in prof.events() if e.name.startswith("kpnerf::")]
+    spans = [e for e in prof.events() if e.name.startswith("kpnerf::") and e.is_user_annotation]
     return out, spans
 
 
