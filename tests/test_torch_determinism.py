@@ -11,6 +11,8 @@ size, with no JAX program:
     process's mode as it found it;
   * importing the port puts CUBLAS_WORKSPACE_CONFIG in place, before any
     work on a device;
+  * torch's pool in a test process, and a child process's, is the share of
+    the cores that tests/torch_threads.py sets;
   * a render, alone or after a training step, runs with torch's defaults;
   * the toy zju step, run twice from one state with one TrainDraws, gives
     the same loss terms, gradients and parameters, bit for bit;
@@ -30,12 +32,15 @@ import copy
 import dataclasses
 import os
 import re
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 import torch.nn.functional as F  # noqa: E402
+from torch_threads import THREADS  # noqa: E402
 
 import keypointnerf_torch.device as device_mod  # noqa: E402
 from keypointnerf_torch import quality_gate, train_icon  # noqa: E402
@@ -80,17 +85,6 @@ def _mode():
 
 ON = dict(deterministic=True, warn_only=False, cudnn_deterministic=True, cudnn_benchmark=False)
 OFF = dict(deterministic=False, warn_only=False, cudnn_deterministic=False, cudnn_benchmark=False)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Toy-size ops gain little from torch's intra-op threads, and beside the
-    suite's other workers all of a machine's threads a process oversubscribe
-    its cores (the toy step took 128 s in a 6-worker run, ~1 s alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -236,6 +230,18 @@ def test_import_sets_cublas_workspace(monkeypatch):
     monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", CALLER)
     importlib.reload(device_mod)
     assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == CALLER
+
+
+def test_thread_budget_reaches_torch_and_children():
+    """tests/torch_threads.py gives each test process one share of the cores:
+    no file has reset torch's pool, and a child process takes the share
+    from OMP_NUM_THREADS."""
+    assert torch.get_num_threads() == THREADS
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import os, torch; print(os.environ['OMP_NUM_THREADS'], torch.get_num_threads())"],
+        capture_output=True, text=True, check=True, timeout=120)
+    assert child.stdout.split() == [str(THREADS)] * 2
 
 
 def _toy_render_model(cfg):

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one share of the cores a process)
+
 from keypointnerf_torch import train as cli  # noqa: E402
 from keypointnerf_torch.data import ZJUDataset, zju  # noqa: E402
 from keypointnerf_torch.data.fake_zju import write_fake_tree  # noqa: E402
@@ -44,7 +46,6 @@ def small_world(monkeypatch):
     split = {HUMAN: {"begin_i": 0, "i_intv": 1, "ni": 2}}
     monkeypatch.setattr(zju, "get_human_split", lambda s: dict(split))
     monkeypatch.setattr(metrics_writer, "_tb_writer", lambda logdir: None)
-    torch.set_num_threads(2)
 
 
 class Faulty:

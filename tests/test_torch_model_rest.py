@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one share of the cores a process)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
@@ -64,17 +66,6 @@ REST = dict(pool_mode="attention_v1", separate_cf=True)
 STRIDE, CHUNK = 2, 256
 RENDER_KEYS = ("rgb_coarse", "depth_coarse", "acc_coarse", "rgb_fine", "depth_fine",
                "acc_fine", "sdf_fine")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two torch threads in this process, as tests/test_torch_trainer.py
-    keeps: beside the suite's other workers eight a process oversubscribe
-    the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _max_rel(a, b):

@@ -38,6 +38,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch_parallel_worker as W  # noqa: E402
+import torch_threads  # noqa: E402,F401  (one share of the cores a process)
 
 from keypointnerf_tpu.models import KeypointNeRF as JaxModel  # noqa: E402
 from keypointnerf_tpu.models import KeypointNeRFConfig as JaxConfig  # noqa: E402
@@ -64,23 +65,11 @@ def _max_rel(a, b):
         np.abs(np.asarray(a)).max(), 1e-12)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two torch threads in this process, as tests/test_torch_trainer.py
-    keeps: beside the suite's other workers eight a process oversubscribe
-    the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("ranks")
     port = parallel.free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="2")
-    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_parallel_worker.py"),
                                str(r), "2", str(port), str(out)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -104,8 +93,9 @@ def ranks(tmp_path_factory):
 @pytest.fixture(scope="module")
 def one_process():
     """The port's one-process step on the global batch of two samples, on
-    the ranks' two torch threads (`two_threads`: the CPU convs'
-    weight-gradient sums are split by thread)."""
+    as many torch threads as the ranks, which take the test process's
+    OMP_NUM_THREADS (the CPU convs' weight-gradient sums are split by
+    thread)."""
     return W.dp_steps(None)
 
 
@@ -270,7 +260,6 @@ def test_cli_two_ranks_and_resume(tmp_path, monkeypatch):
     """`--device cpu --devices 2`: two gloo ranks train 2 steps and save;
     the same command with --max_steps 4 resumes them at 2 and ends at 4;
     rank 0 alone writes the metrics rows."""
-    monkeypatch.setenv("OMP_NUM_THREADS", "2")
     toy = [f"{k}={v}" for k, v in W.TOY.items()]
     base = ["--config", os.path.join(ROOT, "configs", "zju.json"), "--device", "cpu",
             "--devices", "2", "--no_tensorboard", "--out_dir", str(tmp_path), "--set",

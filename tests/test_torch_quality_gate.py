@@ -20,13 +20,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one share of the cores a process)
+
 from keypointnerf_torch import quality_gate as qg  # noqa: E402
 from keypointnerf_torch.utils import CheckpointManager, get_model, load_config  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
 def toy_gate(monkeypatch):
-    torch.set_num_threads(2)
     for name, value in dict(IMAGE=32, PATCH=4, SAMPLES=4, N_TRAIN=2, N_EVAL=1,
                             EVAL_CHUNK=1024).items():
         monkeypatch.setattr(qg, name, value)

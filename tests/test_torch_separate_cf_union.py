@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one share of the cores a process)
+
 from keypointnerf_torch.data import SyntheticConfig, make_sample  # noqa: E402
 from keypointnerf_torch.models import KeypointNeRF, KeypointNeRFConfig, ViewBatch  # noqa: E402
 from keypointnerf_torch.render import render_image  # noqa: E402
@@ -21,7 +23,6 @@ from chip_smoke import tied_separate_cf  # noqa: E402
 
 @pytest.mark.parametrize("fused", [False, True], ids=["modules", "k5_plain"])
 def test_tied_separate_cf_renders_the_union(fused):
-    torch.set_num_threads(2)
     cfg = KeypointNeRFConfig(n_coarse=8, n_fine=8, geo_n_downsample=2, tex_ngf=16,
                              compute_dtype=torch.float32, reuse_coarse_eval=False,
                              use_pallas_geo_mlp=fused)

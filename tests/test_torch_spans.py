@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one share of the cores a process)
+
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from keypointnerf_torch.data import SyntheticConfig, make_sample  # noqa: E402
@@ -35,14 +37,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOY = {"model.n_coarse": 4, "model.n_fine": 4, "model.patch_h": 8, "model.patch_w": 8,
        "model.geo_n_downsample": 2, "model.tex_ngf": 16, "data.image_size": 32}
 SIZE, CHUNK = 16, 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one share of the cores a process)
+
 from keypointnerf_torch import eval_zju  # noqa: E402
 from keypointnerf_torch import train as cli  # noqa: E402
 from keypointnerf_torch.data import SyntheticConfig, SyntheticDataset  # noqa: E402
@@ -72,18 +74,6 @@ TOY_SET = ["data.dataset=synthetic", "data.image_size=32"] + [
 @pytest.fixture(autouse=True)
 def no_tensorboard(monkeypatch):
     monkeypatch.setattr(metrics_writer, "_tb_writer", lambda logdir: None)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Toy-size ops gain little from torch's intra-op threads, and beside
-    the suite's other workers eight of them a process oversubscribe the
-    cores (on 8 CPU cores the resume runs took 450 s in a 6-worker run of
-    the suite, 13 s alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def toy_cfg(tmp, **over):

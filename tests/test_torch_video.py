@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_threads  # noqa: E402,F401  (one share of the cores a process)
+
 from keypointnerf_tpu.render import video as jvideo  # noqa: E402
 
 from keypointnerf_torch import render_dynamic  # noqa: E402
@@ -35,11 +37,6 @@ from keypointnerf_torch.utils import CheckpointManager  # noqa: E402
 
 TOY = dict(n_coarse=4, n_fine=4, patch_h=4, patch_w=4, geo_n_downsample=2, tex_ngf=16,
            compute_dtype=torch.float32)
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    torch.set_num_threads(2)
 
 
 def _model(**kw):

@@ -233,7 +233,6 @@ def trainer_runs(group, out_dir):
 
 def main():
     r, w, port, out_dir = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
-    torch.set_num_threads(2)
     initialize_distributed(f"localhost:{port}", w, r, "gloo", "cpu")
     group = torch.distributed.group.WORLD
     res = {"rank": r, "world": w}
