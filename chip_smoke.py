@@ -48,7 +48,15 @@ Phases (any failure exits nonzero):
      warp-reduction path); every K1 check also launches K1 twice on the
      same inputs and holds the two bit-equal, and K1 runs at a hot-cell
      input too (the fine query's points in three cells a view);
-  4. render: one 512² camera of the strict preset at full width (the zju
+  4. rel_z_decay: the spatial encoding's kernel (csrc/rel_z_decay.cu) at a
+     coarse render query of configs/zju_fast.json (V = 3, N = 8192 rays x 64
+     samples, 70% of the points near a keypoint, the rest far) against its
+     composition (spatial_encode, then the bf16 cast) bit for bit, two
+     launches bit-equal, timed against the composition in turns by CUDA
+     events beside its byte bound; the fast preset's launches of it in a
+     256² and a 512² frame (one a query: 4 and 16); printed as one JSON
+     line;
+  5. render: one 512² camera of the strict preset at full width (the zju
      architecture, bf16, cull budget 0.1875, seeded random weights) on the
      synthetic 512² scene with 3 source views; checks finite outputs,
      cull_overflow == 0 and each kernel's launch count in that render, and
@@ -63,12 +71,12 @@ Phases (any failure exits nonzero):
      against composite + importance_z); and a 128² camera of a model at
      those non-zju widths with `use_pallas_geo_mlp` (K5 on the wmma
      route, every query) against the flag-off render;
-  5. fast (needs render): the model of configs/zju_fast.json, built by the
+  6. fast (needs render): the model of configs/zju_fast.json, built by the
      port's load_config / get_model (its model section checked equal to
      fast_preset(), its seeded weights to the strict camera's), renders the
      same 512² camera at chunk 8192: the fused map halved to 3 x 256² x 84
-     bf16, finite outputs, cull_overflow == 0, none of K1-K6 launched and
-     dense_act 7 times a query (112),
+     bf16, finite outputs, cull_overflow == 0, none of K1-K6 launched,
+     dense_act 7 times a query (112) and rel_z_decay once (16),
      each query's points (the fine cut's int(8192 * 0.75) rays x 64) and
      fused-map lookup points (the lerp's 33 anchors of 64 samples)
      counted, culled == unculled bit for bit with the top-k cuts off;
@@ -81,13 +89,13 @@ Phases (any failure exits nonzero):
      frames' order only: the scanned renderer loops over render_image) and
      run_eval on 2 synthetic 512² samples with auto_cull_budget=1 (finite
      PSNR / SSIM, PNGs under build/chip_smoke_eval/);
-  6. agreement: toy-size f32 renders on the card against the same renders
+  7. agreement: toy-size f32 renders on the card against the same renders
      on the CPU (the paths the CPU tests hold against the JAX package),
      with each kernel's flag off and on, and the toy fast render (cull,
      coarse 0.5, fine 0.75): the rays each program's cull and cuts marched
      are recorded, at most 2 rays may differ in that status, every other
      ray is held at 1e-4 of each output's max as the strict renders are;
-  7. train: optimizer steps of the configs/zju.json recipe at full width,
+  8. train: optimizer steps of the configs/zju.json recipe at full width,
      read by the port's load_config (bf16, 64x64 patch, 64+64 samples,
      matmul VJP with K1, VGG loss on random frozen VGG19, Adam 5e-4) on
      the synthetic 512² scene: 2
@@ -121,10 +129,10 @@ Phases (any failure exits nonzero):
      version and the earlier K1 and timed at the step's own points, its
      byte bound and grid_sampler_2d_backward's time beside; K1 at all
      four of its calls as above; the step twice, bit for bit);
-  8. train agreement: one toy f32 step on the card against the same step
+  9. train agreement: one toy f32 step on the card against the same step
      on the CPU (loss, every gradient, the updated parameters), with
      `use_pallas_geo_mlp`, `fused_feature_map` and `remat` off and on;
-  9. trainer: the port's training CLI (`python -m keypointnerf_torch.train`,
+ 10. trainer: the port's training CLI (`python -m keypointnerf_torch.train`,
      its main()) at full width on the synthetic 512² rig: 8 steps (finite
      train/ rows at 2, 4, 6, 8 and val/ rows at 4, 8 in metrics.jsonl,
      checkpoints 4 and 8, the best at the lower val loss), a second call
@@ -132,7 +140,7 @@ Phases (any failure exits nonzero):
      step (2 samples, finite PSNR / SSIM) and eval_zju on its PNG tree
      (within PNG rounding); the loop's s/step and the host's share making
      samples printed beside the bare step's;
- 10. model_rest: the rest of the model at full width: K5 at separate_cf's
+ 11. model_rest: the rest of the model at full width: K5 at separate_cf's
      3 outputs against its plain version at the strict render's coarse and
      fine (union) queries, on the wgmma route, timed with its bound; the
      512² strict camera with pool_mode attention_v0 and attention_v1, with
@@ -141,7 +149,7 @@ Phases (any failure exits nonzero):
      flag-off render by compare_renders' bounds); 1 + 2 zju steps with
      attention_v1 and separate_cf (finite, s/step); toy f32 renders and a
      step card vs CPU with both flags;
- 11. parallel: the zju step in a one-rank NCCL group (the all-reduced
+ 12. parallel: the zju step in a one-rank NCCL group (the all-reduced
      gradients and terms bit-equal to the step's own, the parameters to
      the update without a group; s/step with and without); the
      one-process step on a global batch of 2, twice, bit for bit;
@@ -157,7 +165,7 @@ Phases (any failure exits nonzero):
      a val and a checkpoint, a resume bit-equal to the saved state, to 4;
      rank 0 alone writes) and run_eval(sharded=True) on 2 samples (scores
      equal to the unsharded run's); each phase's seconds printed;
- 12. gate: the gate's step twice from its seed for GATE_REPEAT_STEPS
+ 13. gate: the gate's step twice from its seed for GATE_REPEAT_STEPS
      steps, bit for bit, K1 at all six calls of its first step as in the
      train phase, and its step in deterministic mode against torch's
      defaults in turns (what the mode and K1 add to a gate step); the
@@ -168,7 +176,7 @@ Phases (any failure exits nonzero):
      (torch.cuda's sync debug mode), the loss of the first and last chunk,
      finite seen / unseen PSNR / SSIM and the fast preset's cull overflow 0
      (the gate exits 1 otherwise);
- 13. data: a fake ZJU-MoCap tree at the dataset's geometry (1024² PNG
+ 14. data: a fake ZJU-MoCap tree at the dataset's geometry (1024² PNG
      images and the two grey masks a view, mask/ and mask_cihp/, their rows
      filtered as camera PNGs are, 21 cameras, every subject of both splits
      sharing files by symlink, 313 / 315 with empty image lists) under
@@ -179,7 +187,7 @@ Phases (any failure exits nonzero):
      K1 six times a step; s/step and the host's share), --run_val on the val
      split, and render_dynamic for 2 orbit frames with configs/zju_fast.json
      (cull_overflow 0);
- 14. export: the serving export (keypointnerf_torch/export.py, the kernels
+ 15. export: the serving export (keypointnerf_torch/export.py, the kernels
      as registered ops): the 512² strict camera with use_pallas_geo_mlp
      exported at chunk 2048 into build/chip_smoke_export/, loaded and run
      in a fresh process that imports only load_render (frames and overflow
@@ -191,16 +199,16 @@ Phases (any failure exits nonzero):
      each kernel's launches counted; the eager render before and after the
      exports bit-equal; export seconds, artifact bytes, load seconds and the
      loaded program's rays/s beside eager's;
- 15. reference_ckpt: a fake reference Lightning checkpoint of the seeded
+ 16. reference_ckpt: a fake reference Lightning checkpoint of the seeded
      full-width model (model.*, vgg_loss.*, Lightning's keys) imported by
      utils/import_reference.py into a fresh model: its 512² strict render
      bit-equal to the source model's;
- 16. icon: the port's ICON CLI (`python -m keypointnerf_torch.train_icon`,
+ 17. icon: the port's ICON CLI (`python -m keypointnerf_torch.train_icon`,
      its main()) at ICON's full widths on 512² blob scenes (200 steps, 8
      scenes, 2 eval scenes, 128³ grids): finite Chamfer / P2S, the OBJ
      files and icon_metrics.json; s/step, grid points/s, meshing seconds;
      then a toy f32 ICON step card vs CPU;
- 17. prints the kernels line, the card line and, last, the result line.
+ 18. prints the kernels line, the card line and, last, the result line.
 
 Every training step runs in the port's deterministic mode
 (keypointnerf_torch/device.py deterministic_training, a context around
@@ -1764,6 +1772,94 @@ def check_dense_act(dev) -> dict:
         "module_path_ms": module_ms, "layers": layers,
     }
 
+
+def encoding_inputs(dev, V, N, K, seed):
+    """pts_cam (V, N, 3) and kpt_cam (V, K, 3): keypoints around z = 3;
+    70% of the points within ~0.15 of a keypoint (decay weights near 1),
+    the rest spread ~2 away (weights down to subnormals and exact zeros)."""
+    rs = np.random.default_rng(seed)
+    kpt = rs.normal(size=(V, K, 3)) * 0.4 + [0.0, 0.0, 3.0]
+    near = kpt[:, rs.integers(0, K, N)] + rs.normal(size=(V, N, 3)) * 0.15
+    far = rs.normal(size=(V, N, 3)) * 2.0 + [0.0, 0.0, 3.0]
+    pts = np.where(rs.uniform(size=(1, N, 1)) < 0.7, near, far)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    return f32(pts), f32(kpt)
+
+
+def check_rel_z_decay(dev) -> dict:
+    """`rel_z_decay` (the module path's spatial encoding in one launch) at a
+    coarse render query of configs/zju_fast.json (V = 3, N = 8192 rays x
+    64 samples, K = 24, its levels, sigma and scale) against its
+    composition (`rel_z_decay_plain`: spatial_encode, then the bf16 cast):
+    bit for bit (every element), two launches bit-equal; kernel and
+    composition timed in turns by CUDA events, beside the byte bound (the
+    points read once, the output written once); then the fast preset's
+    launches of it in a 256² and a 512² frame of the synthetic rig (one a
+    query: 2 and 8 chunks). Prints one JSON line; returns the kernels-line
+    entry."""
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.models import ViewBatch
+    from keypointnerf_torch.ops import rel_z_decay as rzd
+    from keypointnerf_torch.render import render_image
+    from keypointnerf_torch.utils import get_model, load_config
+
+    exp = load_config(str(FAST_CONFIG))
+    cfg = exp.model
+    V, N, K, L = 3, 8192 * cfg.n_coarse, 24, cfg.sp_level
+    args = (L, cfg.sp_sigma, cfg.sp_scale)
+    pts, kpt = encoding_inputs(dev, V, N, K, seed=17)
+    got = rzd.fused_rel_z_decay(pts, kpt, *args)
+    again = rzd.fused_rel_z_decay(pts, kpt, *args)
+    ref = rzd.rel_z_decay_plain(pts, kpt, *args)
+    torch.cuda.synchronize()
+    steps = _bf16_steps(got, ref)
+    differ = int((steps != 0).sum())
+    zero_w = float((ref[..., :K] == 0).float().mean())
+    same = torch.equal(got, again)
+    turns = []
+    for _ in range(2):
+        k_ms = cuda_ms(lambda: rzd.fused_rel_z_decay(pts, kpt, *args), iters=50)
+        c_ms = cuda_ms(lambda: rzd.rel_z_decay_plain(pts, kpt, *args), iters=10)
+        turns += [k_ms, c_ms]
+        k2_ms = cuda_ms(lambda: rzd.fused_rel_z_decay(pts, kpt, *args), iters=50)
+        turns.append(k2_ms)
+    kernel_ms = float(np.median([turns[0], turns[2], turns[3], turns[5]]))
+    plain_ms = float(np.median([turns[1], turns[4]]))
+    n_bytes = V * N * (3 * 4 + (1 + 2 * L) * K * 2) + V * K * 3 * 4
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"rel_z_decay at a coarse render query (V = {V}, N = {N}, K = {K}, L = {L}): "
+          f"{differ} of {got.numel()} elements differ from the composition (largest "
+          f"{int(steps.max())} bf16 ulp; {zero_w:.3f} of dz w exactly 0); two launches "
+          f"bit-equal {same}; kernel {kernel_ms:.4f} ms, composition {plain_ms:.4f} ms "
+          f"(turns {[round(t, 4) for t in turns]}), bound {bound:.4f} ms ({n_bytes} bytes; "
+          f"{kernel_ms / bound:.2f}x)", flush=True)
+    if differ or not same or not bool(torch.isfinite(got.float()).all()):
+        raise SystemExit("rel_z_decay differs from its composition")
+
+    vb = ViewBatch.from_numpy(make_sample(SyntheticConfig(image_size=512, n_views=4), seed=0),
+                              device=dev)
+    model = get_model(exp, device=dev)
+    frames = {}
+    for size in (256, 512):
+        render_image(model, vb, height=size, width=size, chunk=8192)      # warm-up
+        rzd.fused_rel_z_decay.launches = 0
+        render_image(model, vb, height=size, width=size, chunk=8192)
+        torch.cuda.synchronize()
+        frames[str(size)] = rzd.fused_rel_z_decay.launches
+    print(f"rel_z_decay launches of the fast preset: {frames} (256², 512² frames; one a "
+          f"query: expected 4 and 16)", flush=True)
+    if frames != {"256": 4, "512": 16}:
+        raise SystemExit("the fast preset does not encode once a query through rel_z_decay")
+    del model
+    entry = {"name": "rel_z_decay", "route": "cuda",
+             "source": "keypointnerf_torch/csrc/rel_z_decay.cu", "replaces": None,
+             "max_abs_err": float(steps.max()), "differing": differ, "ms": kernel_ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+             "library_ms": None, "turns_ms": turns, "frame_launches": frames}
+    print(json.dumps({"rel_z_decay": entry}), flush=True)
+    return entry
+
+
 def orbit_camera(ang):
     from keypointnerf_torch.data import look_at
 
@@ -2310,7 +2406,8 @@ def kernel_wrappers() -> dict:
             "sp_fused_geo_mlp": ops.sp_geo_mlp_apply,
             "dma_gather": ops.multiview_bilinear_sample_dma,
             "composite_importance": ops.fused_composite_importance,
-            "dense_act": ops.fused_dense_act}
+            "dense_act": ops.fused_dense_act,
+            "rel_z_decay": ops.fused_rel_z_decay}
 
 
 @contextlib.contextmanager
@@ -2404,8 +2501,9 @@ def render_fast(dev, strict) -> dict:
     if overflow != 0.0:
         raise SystemExit("empty-ray cull budget exceeded on the fast render")
     # every layer of the geometry MLP as one dense_act launch: 7 a query,
-    # coarse and fine in every chunk; none of K1-K6
-    want = {"dense_act": 7 * 2 * n_chunks}
+    # coarse and fine in every chunk, and the encoding as one rel_z_decay
+    # launch a query; none of K1-K6
+    want = {"dense_act": 7 * 2 * n_chunks, "rel_z_decay": 2 * n_chunks}
     if launched != want:
         raise SystemExit(f"the fast path launched {launched}, not {want}")
 
@@ -2464,7 +2562,8 @@ def render_fast(dev, strict) -> dict:
     print(f"fast vs strict 512² camera, same run: {n_rays / seconds:.1f} vs "
           f"{n_rays / strict['seconds']:.1f} rays/s, {device_ms:.3f} vs "
           f"{strict['device_ms']:.3f} ms of kernel time", flush=True)
-    return dict(exp=exp, model=model, feats=feats, vb=vb, dense_act=launched["dense_act"])
+    return dict(exp=exp, model=model, feats=feats, vb=vb, dense_act=launched["dense_act"],
+                rel_z_decay=launched["rel_z_decay"])
 
 
 def render_fast_orbit(dev, ctx) -> None:
@@ -2696,6 +2795,7 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
     from keypointnerf_torch.ops import multiview_dmap_onehot as k1
     from keypointnerf_torch.ops import multiview_onehot_bilinear_sample as k2
     from keypointnerf_torch.ops import geo_mlp_apply as k4
+    from keypointnerf_torch.ops import fused_rel_z_decay as krz
     from keypointnerf_torch.ops import sp_geo_mlp_apply as k5
     from keypointnerf_torch.training import TrainDraws, create_train_state, train_step_fn
     from keypointnerf_torch.training import train as train_module
@@ -2756,7 +2856,7 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
     per_step, errs = [], []
     k5_want = 2 if cfg.use_pallas_geo_mlp else 0
     for i in range(steps):
-        k1.launches = k2.launches = k4.launches = k5.launches = 0   # this step only
+        k1.launches = k2.launches = k4.launches = k5.launches = krz.launches = 0  # this step
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         err = step()
@@ -2777,6 +2877,8 @@ def train_full_width(dev, warmup=2, steps=5, capture_k1=False, capture_grads=Fal
             raise SystemExit("K5 must run twice a step with the flag on, never with it off")
         if launches["onehot_bilinear"]:
             raise SystemExit("K2 (an eval lookup) ran in a training step")
+        if krz.launches:
+            raise SystemExit("the encoding's kernel (inference only) ran in a training step")
         if not all(math.isfinite(v) for v in errs[-1].values()):
             raise SystemExit("a loss or the gradient norm is not finite")
     seconds = sum(per_step) / steps
@@ -4810,7 +4912,7 @@ def icon_agreement_small(dev) -> None:
         raise SystemExit("the card's ICON step disagrees with the CPU's")
 
 
-PHASES = ("kernels", "render", "fast", "agreement", "train", "train_agreement", "trainer",
+PHASES = ("kernels", "rel_z_decay", "render", "fast", "agreement", "train", "train_agreement", "trainer",
           "model_rest", "parallel", "gate", "data", "export", "reference_ckpt", "icon")
 
 
@@ -4880,6 +4982,13 @@ def main() -> int:
         phase("dense_act: the module path's dense layers, one launch each")
         entries["dense_act"] = check_dense_act(dev)
         print(f"phase kernels {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if "rel_z_decay" in todo:
+        t0 = time.perf_counter()
+        phase("rel_z_decay: the module path's spatial encoding, one launch")
+        entries["rel_z_decay"] = check_rel_z_decay(dev)
+        launches["rel_z_decay"] = entries["rel_z_decay"]["frame_launches"]["512"]
+        print(f"phase rel_z_decay {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "render" in todo:
         t0 = time.perf_counter()

@@ -20,8 +20,10 @@ training:
                        view dropout in
                        training, relative spatial encoding, geometry MLP
                        fusion (one launch of kernel K5 or K4 for the
-                       encoding-and-MLP chain with `use_pallas_geo_mlp`)
-                       and the IBR color head.
+                       encoding-and-MLP chain with `use_pallas_geo_mlp`;
+                       on the module path at inference in bf16 on the card
+                       the `rel_z_decay` encoding as one launch,
+                       `ops.fused_rel_z_decay`) and the IBR color head.
   * `render_rays()`  — coarse + fine ray march: at eval with uniform
                        importance resampling (with `use_pallas_composite`
                        one launch of kernel K6 for the coarse composite and
@@ -89,6 +91,7 @@ from ..geometry.sampling import (
     stratified_z,
     union_sorted_z,
 )
+from ..ops import rel_z_decay as rzd
 from ..ops.composite_importance import fused_composite_importance
 from ..ops.dma_gather import multiview_bilinear_sample_dma
 from ..ops.feat_sample import multiview_bilinear_sample, multiview_bilinear_sample_mm
@@ -96,7 +99,7 @@ from ..ops.onehot_bilinear import multiview_onehot_bilinear_sample
 from ..utils.profiling import span
 from .cnn import ConvTranspose2d, HGFilter, ResBlkEncoder, avg_pool2
 from .ibr_head import IBRRenderingHead, dense
-from .mlp import GeoFusionMLP
+from .mlp import GeoFusionMLP, _needs_grad
 from .spatial_encoding import SpatialEncodingConfig, spatial_encode, spatial_encoding_dim
 
 
@@ -538,8 +541,14 @@ class KeypointNeRF(nn.Module):
                     self.mlp_geo, f32(pts_cam), f32(kpt_cam), *rest, sp_level=c.sp_level,
                     sp_sigma=c.sp_sigma, sp_scale=c.sp_scale, compute_dtype=cdt)
             else:
-                sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam,
-                                    z_ndc=zn, xy_ndc=xy)
+                if not c.use_pallas_geo_mlp and self._fused_encoding(pts_cam, kpt_cam):
+                    # one launch, stored as the bf16 operand the first dense
+                    # layer reads: the bits of the composition and its cast
+                    sp = rzd.fused_rel_z_decay(pts_cam, kpt_cam, c.sp_level, c.sp_sigma,
+                                               c.sp_scale)
+                else:
+                    sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam,
+                                        z_ndc=zn, xy_ndc=xy)
                 if c.use_pallas_geo_mlp:
                     out, valid, _, latent_fused = geo_mlp_apply(          # K4
                         self.mlp_geo, f32(sp), *rest, compute_dtype=cdt)
@@ -566,6 +575,18 @@ class KeypointNeRF(nn.Module):
             rgb = self.mlp_tex(rgb_feat, ray_diff.to(cdt), mask.to(cdt))  # (N, 3)
         return (out[..., 0:1].float(), out[..., 1:].float(), rgb.float(),
                 valid.float())
+
+    def _fused_encoding(self, pts_cam, kpt_cam) -> bool:
+        """Whether the module path's encoding runs as one launch of
+        `ops.fused_rel_z_decay`: `rel_z_decay` in a bf16 compute dtype, f32
+        inputs on a device of `ops.rel_z_decay.DEVICES`, K and L that the
+        kernel takes, and no gradient needed (the geometry MLP's test)."""
+        c = self.cfg
+        return (c.sp_type == "rel_z_decay" and c.compute_dtype == torch.bfloat16
+                and pts_cam.device.type in rzd.DEVICES
+                and pts_cam.dtype == kpt_cam.dtype == torch.float32
+                and rzd.takes(kpt_cam.shape[1], c.sp_level)
+                and not _needs_grad(self.mlp_geo, (pts_cam, kpt_cam)))
 
     def _query(self, pts, view_dirs, feats, vb, n_samples, train, view_keep):
         """`query_points`, or in training with `remat` the same query with

@@ -15,6 +15,7 @@ from .fused_geo_mlp import (
 )
 from .onehot_bilinear import multiview_onehot_bilinear_sample, onehot_bilinear_plain
 from .onehot_dmap import multiview_dmap_onehot, onehot_dmap_plain
+from .rel_z_decay import fused_rel_z_decay, rel_z_decay_plain
 
 __all__ = [
     "bilinear_sample",
@@ -24,6 +25,7 @@ __all__ = [
     "fold_weight_norm",
     "fused_composite_importance",
     "fused_dense_act",
+    "fused_rel_z_decay",
     "geo_mlp_apply",
     "mlp_stack_plain",
     "multiview_bilinear_sample",
@@ -33,6 +35,7 @@ __all__ = [
     "multiview_onehot_bilinear_sample",
     "onehot_bilinear_plain",
     "onehot_dmap_plain",
+    "rel_z_decay_plain",
     "sp_geo_mlp_apply",
     "sp_mlp_stack_plain",
 ]

@@ -1,8 +1,8 @@
-"""The kernels as registered ops (`torch.ops.kpnerf.*`): K2, K3, K4, K5
-and K6 each have a CUDA implementation (the kernel), a CPU one (its plain
-version) and a fake one (shapes and dtypes), which is what lets
-`torch.export` carry them (keypointnerf_torch/export.py). K1 is training
-only and stays a ctypes call.
+"""The kernels as registered ops (`torch.ops.kpnerf.*`): K2, K3, K4, K5,
+K6, dense_act and rel_z_decay each have a CUDA implementation (the
+kernel), a CPU one (its plain version) and a fake one (shapes and dtypes),
+which is what lets `torch.export` carry them (keypointnerf_torch/export.py).
+K1 is training only and stays a ctypes call.
 
 On the CPU, `torch.library.opcheck` checks each op's schema and that its
 fake implementation gives the CPU implementation's shapes, dtypes and
@@ -128,6 +128,49 @@ def test_dense_act_exports():
         want = Head()(*args)
     ops_called = [n.target for n in ep.graph.nodes if n.op == "call_function"]
     assert ops_called.count(torch.ops.kpnerf.dense_act.default) == 7
+    assert torch.equal(ep.module()(*args), want)
+
+
+@pytest.mark.parametrize("sp_level,n_kpt", [(3, 24), (0, 8)])
+def test_rel_z_decay_op(sp_level, n_kpt):
+    """rel_z_decay: the op's schema and fake implementation against the CPU
+    one (the composition), and the wrapper's values through the op."""
+    rs = np.random.default_rng(5)
+    pts = torch.from_numpy((rs.normal(size=(V, N, 3)) * 0.3 + [0, 0, 3]).astype(np.float32))
+    kpt = torch.from_numpy((rs.normal(size=(V, n_kpt, 3)) * 0.3 + [0, 0, 3]).astype(np.float32))
+    args = (pts, kpt, sp_level, 0.1, 1.0)
+    torch.library.opcheck(torch.ops.kpnerf.rel_z_decay.default, args, test_utils=UTILS)
+    got = ops.fused_rel_z_decay(*args)
+    assert got.shape == (V, N, (1 + 2 * sp_level) * n_kpt) and got.dtype == torch.bfloat16
+    assert torch.equal(got, ops.rel_z_decay_plain(*args))
+
+
+def test_rel_z_decay_exports():
+    """An encoding exported with the op holds it once (the fake
+    implementation's shape and dtype carry the trace into the first dense
+    layer), and the exported program gives the eager bits."""
+    from keypointnerf_torch.models.mlp import MLP
+
+    mlp = MLP((168, 16, 2), dtype=torch.bfloat16)
+
+    class Head(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.mlp = mlp
+
+        def forward(self, pts, kpt):
+            return self.mlp(ops.fused_rel_z_decay(pts, kpt, 3, 0.1, 1.0))
+
+    rs = np.random.default_rng(6)
+    args = (torch.from_numpy((rs.normal(size=(V, N, 3)) * 0.3 + [0, 0, 3]).astype(np.float32)),
+            torch.from_numpy((rs.normal(size=(V, K, 3)) * 0.3 + [0, 0, 3]).astype(np.float32)))
+    with torch.no_grad():
+        ep = torch.export.export(Head(), args)
+        want = Head()(*args)
+    ops_called = [n.target for n in ep.graph.nodes if n.op == "call_function"]
+    assert ops_called.count(torch.ops.kpnerf.rel_z_decay.default) == 1
+    enc = [n for n in ep.graph.nodes if n.target == torch.ops.kpnerf.rel_z_decay.default][0]
+    assert enc.meta["val"].shape == (V, N, 168) and enc.meta["val"].dtype == torch.bfloat16
     assert torch.equal(ep.module()(*args), want)
 
 
