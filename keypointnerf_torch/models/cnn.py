@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import cached
+from ..ops.dense import autograd_records
 
 
 class Conv2d(nn.Conv2d):
@@ -124,7 +125,7 @@ class ReplicationPad2d(nn.ReplicationPad2d):
     an export's trace) it pads as torch does."""
 
     def forward(self, x):
-        if torch.is_grad_enabled() and x.requires_grad:
+        if autograd_records(x):
             return _ReplicationPad.apply(x, tuple(self.padding))
         return super().forward(x)
 

@@ -94,12 +94,14 @@ from ..geometry.sampling import (
 from ..ops import rel_z_decay as rzd
 from ..ops.composite_importance import fused_composite_importance
 from ..ops.dma_gather import multiview_bilinear_sample_dma
+from ..ops.dense import autograd_records
 from ..ops.feat_sample import multiview_bilinear_sample, multiview_bilinear_sample_mm
+from ..ops.fused_geo_mlp import geo_mlp_apply, sp_geo_mlp_apply
 from ..ops.onehot_bilinear import multiview_onehot_bilinear_sample
 from ..utils.profiling import span
 from .cnn import ConvTranspose2d, HGFilter, ResBlkEncoder, avg_pool2
 from .ibr_head import IBRRenderingHead, dense
-from .mlp import GeoFusionMLP, _needs_grad
+from .mlp import GeoFusionMLP
 from .spatial_encoding import SpatialEncodingConfig, spatial_encode, spatial_encoding_dim
 
 
@@ -523,39 +525,8 @@ class KeypointNeRF(nn.Module):
             pw = pw * mask
             pw = (pw / (pw.sum(dim=0, keepdim=True) + 1e-6)).detach()
 
-            # relative spatial encoding
-            pts_cam = world_to_cam(pts[None], vb.src_R, vb.src_t)       # (V, N, 3)
-            kpt_cam = world_to_cam(vb.kpt3d[None], vb.src_R, vb.src_t)  # (V, Kp, 3)
-            if c.use_pallas_geo_mlp:
-                # one kernel launch for the encoding-and-MLP chain; it takes f32
-                # inputs and rounds its dot operands to `cdt` itself (imported
-                # here: ops.fused_geo_mlp imports models.mlp)
-                from ..ops.fused_geo_mlp import geo_mlp_apply, sp_geo_mlp_apply
-
-                def f32(t):
-                    return t.float().contiguous()
-
-                rest = (f32(feat_coarse), f32(feat_hd), f32(mask), f32(pw))
-            if c.use_pallas_geo_mlp and c.sp_type == "rel_z_decay":
-                out, valid, _, latent_fused = sp_geo_mlp_apply(           # K5
-                    self.mlp_geo, f32(pts_cam), f32(kpt_cam), *rest, sp_level=c.sp_level,
-                    sp_sigma=c.sp_sigma, sp_scale=c.sp_scale, compute_dtype=cdt)
-            else:
-                if not c.use_pallas_geo_mlp and self._fused_encoding(pts_cam, kpt_cam):
-                    # one launch, stored as the bf16 operand the first dense
-                    # layer reads: the bits of the composition and its cast
-                    sp = rzd.fused_rel_z_decay(pts_cam, kpt_cam, c.sp_level, c.sp_sigma,
-                                               c.sp_scale)
-                else:
-                    sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam,
-                                        z_ndc=zn, xy_ndc=xy)
-                if c.use_pallas_geo_mlp:
-                    out, valid, _, latent_fused = geo_mlp_apply(          # K4
-                        self.mlp_geo, f32(sp), *rest, compute_dtype=cdt)
-                else:
-                    out, valid, _, latent_fused = self.mlp_geo(
-                        sp.to(cdt), [feat_coarse.to(cdt), feat_hd.to(cdt)],
-                        mask.to(cdt), pw.to(cdt))
+            out, valid, latent_fused = self._geo_mlp(pts, vb, xy, zn, feat_coarse, feat_hd,
+                                                     mask, pw)
 
         with span("query.ibr"):
             latent24 = dense(self.ibr_compress_gfeat, latent_fused, cdt)
@@ -576,17 +547,55 @@ class KeypointNeRF(nn.Module):
         return (out[..., 0:1].float(), out[..., 1:].float(), rgb.float(),
                 valid.float())
 
+    def _geo_mlp(self, pts, vb: ViewBatch, xy, zn, feat_coarse, feat_hd, mask, pw):
+        """The relative spatial encoding and the geometry MLP of a query:
+        K5 (`use_pallas_geo_mlp` with `rel_z_decay`), K4
+        (`use_pallas_geo_mlp`), or the module path, whose encoding is one
+        launch of `ops.fused_rel_z_decay` where `_fused_encoding` holds and
+        is composed elsewhere. Returns out (N, Do), valid (N, 1) and
+        latent_fused (N, 2 Dl)."""
+        c = self.cfg
+        cdt = c.compute_dtype
+        pts_cam = world_to_cam(pts[None], vb.src_R, vb.src_t)          # (V, N, 3)
+        kpt_cam = world_to_cam(vb.kpt3d[None], vb.src_R, vb.src_t)     # (V, Kp, 3)
+
+        def f32(*ts):
+            # the kernels take f32 inputs and round their dot operands to `cdt`
+            return [t.float().contiguous() for t in ts]
+
+        if c.use_pallas_geo_mlp and c.sp_type == "rel_z_decay":
+            out, valid, _, latent_fused = sp_geo_mlp_apply(               # K5
+                self.mlp_geo, *f32(pts_cam, kpt_cam, feat_coarse, feat_hd, mask, pw),
+                sp_level=c.sp_level, sp_sigma=c.sp_sigma, sp_scale=c.sp_scale,
+                compute_dtype=cdt)
+        elif c.use_pallas_geo_mlp:
+            sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam, z_ndc=zn,
+                                xy_ndc=xy)
+            out, valid, _, latent_fused = geo_mlp_apply(                  # K4
+                self.mlp_geo, *f32(sp, feat_coarse, feat_hd, mask, pw), compute_dtype=cdt)
+        else:
+            if self._fused_encoding(pts_cam, kpt_cam):
+                # one launch, stored as the bf16 operand the first dense
+                # layer reads: the bits of the composition and its cast
+                sp = rzd.fused_rel_z_decay(pts_cam, kpt_cam, c.sp_level, c.sp_sigma,
+                                           c.sp_scale)
+            else:
+                sp = spatial_encode(c.sp_config, pts, pts_cam, vb.kpt3d, kpt_cam, z_ndc=zn,
+                                    xy_ndc=xy)
+            out, valid, _, latent_fused = self.mlp_geo(
+                sp.to(cdt), [feat_coarse.to(cdt), feat_hd.to(cdt)], mask.to(cdt), pw.to(cdt))
+        return out, valid, latent_fused
+
     def _fused_encoding(self, pts_cam, kpt_cam) -> bool:
-        """Whether the module path's encoding runs as one launch of
-        `ops.fused_rel_z_decay`: `rel_z_decay` in a bf16 compute dtype, f32
-        inputs on a device of `ops.rel_z_decay.DEVICES`, K and L that the
-        kernel takes, and no gradient needed (the geometry MLP's test)."""
+        """Whether the module path's encoding runs as one call of
+        `ops.fused_rel_z_decay` (on the card its kernel, on the CPU the
+        composition): `rel_z_decay` in a bf16 compute dtype, K and L that
+        the kernel takes, and autograd recording through neither the
+        points nor the geometry MLP."""
         c = self.cfg
         return (c.sp_type == "rel_z_decay" and c.compute_dtype == torch.bfloat16
-                and pts_cam.device.type in rzd.DEVICES
-                and pts_cam.dtype == kpt_cam.dtype == torch.float32
                 and rzd.takes(kpt_cam.shape[1], c.sp_level)
-                and not _needs_grad(self.mlp_geo, (pts_cam, kpt_cam)))
+                and not autograd_records(pts_cam, kpt_cam, module=self.mlp_geo))
 
     def _query(self, pts, view_dirs, feats, vb, n_samples, train, view_keep):
         """`query_points`, or in training with `remat` the same query with

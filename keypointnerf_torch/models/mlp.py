@@ -31,7 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.dense import dot_f32, linear_blocks, softplus100  # noqa: F401  (the model's numerics)
+from ..ops.dense import (autograd_records, dot_f32,  # noqa: F401  (the model's numerics)
+                         linear_blocks, softplus100)
 from ..ops.dense_act import fused_dense_act, takes
 
 
@@ -105,12 +106,6 @@ def _fusable(slots, in_widths, nl, dtype) -> bool:
                for i, (slot, widths) in enumerate(zip(slots, in_widths)))
 
 
-def _needs_grad(module, tensors) -> bool:
-    return torch.is_grad_enabled() and (
-        any(t.requires_grad for t in tensors) or
-        any(p.requires_grad for p in module.parameters()))
-
-
 def _layer(slot, x, last: bool, nl, fused: bool):
     """One layer and its nonlinearity (none after the last layer); `fused`:
     both in one `ops.fused_dense_act` call, a hidden layer's output in bf16."""
@@ -147,7 +142,7 @@ class MLP(nn.Module):
     def forward(self, x):
         x0 = x
         n = len(self.layers)
-        fused = self.fusable and not _needs_grad(self, (x,))
+        fused = self.fusable and not autograd_records(x, module=self)
         for i, layer in enumerate(self.layers):
             if i in self.skip_layers:
                 x = (x, x0)
@@ -182,7 +177,7 @@ class MLPUNet(nn.Module):
 
     def forward(self, x, feats):
         n = len(self.layers)
-        fused = self.fusable and not _needs_grad(self, (x, *feats))
+        fused = self.fusable and not autograd_records(x, *feats, module=self)
         for i, layer in enumerate(self.layers):
             if i in self.skip_idx:
                 x = (x, feats[self.skip_idx[i]])

@@ -4,15 +4,17 @@ Port of `keypointnerf_tpu/models/spatial_encoding.py`, all nine `sp_type`
 variants. The zju default is `rel_z_decay`: per-view camera-space depth
 deltas to K keypoints, sin/cos positionally encoded at `sp_level` octaves
 and weighted by a Gaussian 3D-distance decay exp(-||dxyz||^2 / 2 sigma^2).
+That branch and `positional_encoding` live in `ops/rel_z_decay.py`, whose
+op's plain version they are.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from ..device import constant
+from ..ops.rel_z_decay import positional_encoding, rel_z_decay_encode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,30 +39,6 @@ def spatial_encoding_dim(cfg: SpatialEncodingConfig) -> int:
             return (1 + 2 * cfg.sp_level) * 3 * cfg.n_kpt
         return (1 + 2 * cfg.sp_level) * 3
     return 0
-
-
-def positional_encoding(x, n_levels, scale=1.0, weight=None):
-    """[x, sin(pi x), cos(pi x), sin(2 pi x), cos(2 pi x), ...].
-
-    Levels > 0 come from the double-angle recursion (sin 2y = 2 sin y cos y,
-    cos 2y = 1 - 2 sin^2 y), as in the JAX package. `weight` (..., C), when
-    given, multiplies x and every sin/cos block.
-
-    x: (..., C) -> (..., (1 + 2 * n_levels) * C).
-    """
-    if n_levels <= 0:
-        return x if weight is None else x * weight
-    w = weight
-    wx = x if w is None else x * w
-    y = (scale * math.pi) * x
-    s, c = torch.sin(y), torch.cos(y)
-    blocks = [wx]
-    for lvl in range(n_levels):
-        if lvl:
-            s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
-        blocks.append(s if w is None else s * w)
-        blocks.append(c if w is None else c * w)
-    return torch.cat(blocks, dim=-1)
 
 
 def spatial_encode(
@@ -100,10 +78,7 @@ def spatial_encode(
         dz = s * (pts_cam[:, :, None, 2] - kpt_cam[:, None, :, 2])  # (V, N, K)
         return positional_encoding(dz, L)
     if t == "rel_z_decay":
-        dz = s * (pts_cam[:, :, None, 2] - kpt_cam[:, None, :, 2])  # (V, N, K)
-        dxyz = pts_cam[:, :, None, :] - kpt_cam[:, None, :, :]      # (V, N, K, 3)
-        w = torch.exp(-(dxyz * dxyz).sum(-1) / (2.0 * cfg.sigma**2))
-        return positional_encoding(dz, L, weight=w)
+        return rel_z_decay_encode(pts_cam, kpt_cam, L, cfg.sigma, s)
     if t == "rel_cxyz":
         d = s * (pts_cam[:, :, None, :] - kpt_cam[:, None, :, :])   # (V, N, K, 3)
         return positional_encoding(d.reshape(V, d.shape[1], -1), L)

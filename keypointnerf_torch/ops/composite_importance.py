@@ -31,9 +31,10 @@ CUDA tensor it launches the hand-written kernel
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
+
+from ._build import check_device, define_op, entry, launch
 
 _BIG = 1e30
 _LOG_FLOOR = -80.0
@@ -105,16 +106,6 @@ def _check(z, alpha, sdf, rgb, u):
             raise ValueError(f"{name} on {t.device} but z on {z.device}")
 
 
-@functools.cache
-def _kernel():
-    from ._build import load
-
-    fn = load("composite_importance").kpn_composite_importance
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _unpack(buf, R, S, F):
     """The six outputs as views of the op's one buffer: [contrib (R, S) |
     z_fine (R, F) | color (R, 3) | depth | acc | sdf (R,)], made by
@@ -134,51 +125,35 @@ def _launch(z, alpha, sdf, rgb, u):
     if not all(t.is_contiguous() for t in (z, alpha, sdf, rgb, u)):
         raise ValueError("the kernel takes contiguous inputs")
     # the six outputs are one allocation (`_unpack`'s layout) passed as
-    # offsets of its base; the stream is the raw handle, and the device is
-    # switched only when it must be
-    buf = torch.empty(R * (S + F + 6), dtype=torch.float32, device=z.device)
+    # offsets of its base
+    buf = _new_out(z, alpha, sdf, rgb, u)
     at = R * (S + F)                              # color, then depth, acc, sdf
     base = buf.data_ptr()
-    args = (z.data_ptr(), alpha.data_ptr(), sdf.data_ptr(), rgb.data_ptr(), u.data_ptr(),
-            base + 4 * at, base + 4 * (at + 3 * R), base + 4 * (at + 4 * R),
-            base + 4 * (at + 5 * R), base, base + 4 * R * S, R, S, F)
-    index = z.get_device()
-    if index == torch.cuda.current_device():
-        err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = _kernel()(*args, torch._C._cuda_getCurrentRawStream(index))
-    if err != 0:
-        raise RuntimeError(f"composite_importance kernel launch failed: CUDA error {err}")
-    fused_composite_importance.launches += 1
+    fn = entry("composite_importance", "kpn_composite_importance", *(ctypes.c_void_p,) * 11,
+               *(ctypes.c_int,) * 3)
+    launch(fused_composite_importance, fn, z, z.data_ptr(), alpha.data_ptr(), sdf.data_ptr(),
+           rgb.data_ptr(), u.data_ptr(), base + 4 * at, base + 4 * (at + 3 * R),
+           base + 4 * (at + 4 * R), base + 4 * (at + 5 * R), base, base + 4 * R * S, R, S, F)
     return buf
 
 
-@torch.library.custom_op("kpnerf::composite_importance", mutates_args=(),
-                         device_types="cuda")
-def composite_importance_op(z: torch.Tensor, alpha: torch.Tensor, sdf: torch.Tensor,
-                            rgb: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """K6 as a registered op (`torch.ops.kpnerf.composite_importance`): the
-    kernel on CUDA, `composite_importance_plain` on the CPU, shapes alone
-    under a trace. Returns the six outputs in one f32 buffer (`_unpack`)."""
-    return _launch(z, alpha, sdf, rgb, u)
-
-
-@composite_importance_op.register_kernel("cpu")
-def _(z, alpha, sdf, rgb, u):
+def _plain(z, alpha, sdf, rgb, u):
     color, depth, acc, sdf_out, contrib, z_fine = composite_importance_plain(
         z, alpha, sdf, rgb, u)
     return torch.cat([contrib.reshape(-1), z_fine.reshape(-1), color.reshape(-1),
                       depth, acc, sdf_out])
 
 
-@composite_importance_op.register_fake
-def _(z, alpha, sdf, rgb, u):
+def _new_out(z, alpha, sdf, rgb, u):
+    """The uninitialised output buffer: the kernel's, and the op's under a
+    trace."""
     R, S = z.shape
     return z.new_empty((R * (S + u.shape[1] + 6),))
 
 
-_OP = torch.ops.kpnerf.composite_importance.default
+# K6 as a registered op: the six outputs in one f32 buffer (`_unpack`)
+_OP = define_op("composite_importance(Tensor z, Tensor alpha, Tensor sdf, Tensor rgb, "
+                "Tensor u) -> Tensor", _launch, _plain, _new_out)
 
 
 def fused_composite_importance(z, alpha, sdf, rgb, u):
@@ -191,8 +166,7 @@ def fused_composite_importance(z, alpha, sdf, rgb, u):
     version, both through the registered op.
     """
     _check(z, alpha, sdf, rgb, u)
-    if z.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no kernel for device {z.device}")
+    check_device(z)
     return _unpack(_OP(z, alpha, sdf, rgb, u), z.shape[0], z.shape[1], u.shape[1])
 
 

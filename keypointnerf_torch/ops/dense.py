@@ -1,6 +1,8 @@
 """The dense-layer numerics the model's layers and the fused geometry
 MLP's plain versions share: softplus with beta 100 and the product of
-operands rounded to the compute dtype with its sum kept in f32.
+operands rounded to the compute dtype with its sum kept in f32; and
+`autograd_records`, the one test of whether a call may take an
+inference-only kernel.
 
 They sit in `ops/` so that the kernel modules import nothing of
 `models/`: an exported program's consumer loads the ops alone.
@@ -9,6 +11,16 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def autograd_records(*tensors, module=None) -> bool:
+    """Whether autograd records through these tensors or `module`'s
+    parameters: the test every inference-only kernel route takes (it runs
+    only where this is False), and the fixed-order pad's
+    (`models/cnn.py:ReplicationPad2d`)."""
+    return torch.is_grad_enabled() and (
+        any(t.requires_grad for t in tensors)
+        or (module is not None and any(p.requires_grad for p in module.parameters())))
 
 
 def softplus100(x):
@@ -34,8 +46,7 @@ def dot_f32(x, w, dtype):
     bf16 matmul with an f32 output (`torch.mm(..., out_dtype=float32)`),
     ~6x faster on an H100 (PERF.md).
     """
-    needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-    if dtype == torch.bfloat16 and x.is_cuda and not needs_grad:
+    if dtype == torch.bfloat16 and x.is_cuda and not autograd_records(x, w):
         a = x.to(dtype).reshape(-1, x.shape[-1])
         out = torch.mm(a, w.to(dtype).T, out_dtype=torch.float32)
         return out.reshape(x.shape[:-1] + (w.shape[0],))

@@ -28,11 +28,11 @@ implementation gives the output's shape and dtype.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence
 
 import torch
 
+from ._build import check_device, define_op, entry, launch
 from .dense import linear_blocks, softplus100
 
 DTYPES = (torch.bfloat16, torch.float32)    # of the input blocks and the output
@@ -96,17 +96,6 @@ def _rows(x: torch.Tensor):
     return a, lda
 
 
-@functools.cache
-def _kernel():
-    from ._build import load
-
-    fn = load("dense_act").kpn_dense_act
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(xs, w, bias, softplus, out_dtype):
     widths = [x.shape[-1] for x in xs]
     n_out = w.shape[0]
@@ -125,36 +114,19 @@ def _launch(xs, w, bias, softplus, out_dtype):
             w.data_ptr(), bias.data_ptr(), out.data_ptr()]
     dims = (M, widths[0], k1, rows[0][1], lda1, n_out)
     flags = int(softplus) | (2 if out_dtype == torch.bfloat16 else 0)
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = _kernel()((ctypes.c_void_p * 5)(*ptrs), (ctypes.c_longlong * 6)(*dims), flags,
-                        stream)
-    if err != 0:
-        raise RuntimeError(f"dense_act kernel launch failed: CUDA error {err}")
-    fused_dense_act.launches += 1
+    fn = entry("dense_act", "kpn_dense_act", ctypes.POINTER(ctypes.c_void_p),
+               ctypes.POINTER(ctypes.c_longlong), ctypes.c_int)
+    launch(fused_dense_act, fn, w, (ctypes.c_void_p * 5)(*ptrs),
+           (ctypes.c_longlong * 6)(*dims), flags)
     return out
 
 
-# The registered op, defined through `torch.library.Library` rather than
-# `custom_op`: a `custom_op` backend is wrapped to keep dynamo out, and its
-# first call imports torch._dynamo (~840 modules, seconds of a process's
-# set-up) where no other registered op runs, as in the fast render. The
-# kernel on CUDA, the plain version on the CPU, the output's shape and dtype
-# under a trace; no autograd kernel: the module path calls it only where no
-# gradient is needed.
-_LIB = torch.library.Library("kpnerf", "FRAGMENT")
-_LIB.define("dense_act(Tensor[] xs, Tensor w, Tensor bias, bool softplus, "
-            "ScalarType out_dtype) -> Tensor")
-_LIB.impl("dense_act", _launch, "CUDA")
-_LIB.impl("dense_act", dense_act_plain, "CPU")
-
-
-@torch.library.register_fake("kpnerf::dense_act", lib=_LIB)
-def _(xs, w, bias, softplus, out_dtype):
+def _fake(xs, w, bias, softplus, out_dtype):
     return xs[0].new_empty((*xs[0].shape[:-1], w.shape[0]), dtype=out_dtype)
 
 
-_OP = torch.ops.kpnerf.dense_act.default
+_OP = define_op("dense_act(Tensor[] xs, Tensor w, Tensor bias, bool softplus, "
+                "ScalarType out_dtype) -> Tensor", _launch, dense_act_plain, _fake)
 
 
 def fused_dense_act(xs: Sequence[torch.Tensor], w: torch.Tensor, bias: torch.Tensor,
@@ -168,8 +140,7 @@ def fused_dense_act(xs: Sequence[torch.Tensor], w: torch.Tensor, bias: torch.Ten
     is needed."""
     xs = list(xs)
     _check(xs, w, bias, out_dtype)
-    if w.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no kernel for device {w.device}")
+    check_device(w)
     return _OP(xs, w, bias, softplus, out_dtype)
 
 

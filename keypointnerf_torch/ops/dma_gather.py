@@ -32,14 +32,10 @@ launch for all views; its threads move a row in pieces of
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from .feat_sample import bilinear_coords, check_lookup, gather_corners, launch_lookup
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from ._build import check_device, define_op
+from .feat_sample import bilinear_coords, check_lookup, gather_corners, launch_lookup, lookup_out
 
 
 def _lerp(a, w, b):
@@ -67,40 +63,12 @@ def dma_gather_plain(feats, xy):
     return _lerp(top, wy, bot)
 
 
-@functools.cache
-def _kernel():
-    from ._build import load
-
-    fn = load("dma_gather").kpn_dma_gather
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(feats, xy):
-    out, err = launch_lookup(_kernel(), feats, xy, _DTYPE_CODE[feats.dtype])
-    if err != 0:
-        raise RuntimeError(f"dma_gather kernel launch failed: CUDA error {err}")
-    multiview_bilinear_sample_dma.launches += 1
-    return out
+    return launch_lookup(multiview_bilinear_sample_dma, "dma_gather", feats, xy)
 
 
-@torch.library.custom_op("kpnerf::dma_gather", mutates_args=(), device_types="cuda")
-def dma_gather_op(feats: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """K3 as a registered op (`torch.ops.kpnerf.dma_gather`): the kernel on
-    CUDA, `dma_gather_plain` on the CPU, shapes alone under a trace."""
-    return _launch(feats, xy)
-
-
-dma_gather_op.register_kernel("cpu")(dma_gather_plain)
-
-
-@dma_gather_op.register_fake
-def _(feats, xy):
-    return feats.new_empty((feats.shape[0], xy.shape[1], feats.shape[3]))
-
-
-_OP = torch.ops.kpnerf.dma_gather.default
+_OP = define_op("dma_gather(Tensor feats, Tensor xy) -> Tensor", _launch, dma_gather_plain,
+                lookup_out)
 
 
 def multiview_bilinear_sample_dma(feats, xy):
@@ -111,9 +79,8 @@ def multiview_bilinear_sample_dma(feats, xy):
     `multiview_bilinear_sample_dma.launches`), CPU tensors to the plain
     version, both through the registered op.
     """
-    check_lookup(feats, xy, _DTYPE_CODE)
-    if feats.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no kernel for device {feats.device}")
+    check_lookup(feats, xy)
+    check_device(feats)
     return _OP(feats, xy)
 
 

@@ -20,7 +20,11 @@ tests/test_torch_ops.py).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from ._build import DTYPE_CODE, entry, launch
 
 
 def bilinear_coords(xy, H, W):
@@ -46,9 +50,9 @@ def gather_corners(feats, x0, y0):
     return [flat[base + off] for off in (0, 1, W, W + 1)]
 
 
-def check_lookup(feats, xy, dtypes):
+def check_lookup(feats, xy):
     """Raise on what the lookup kernels (K2, K3) do not take: maps (V, H,
-    W, C) at least 2x2 in one of `dtypes`, f32 points (V, N, 2) on the same
+    W, C) at least 2x2 in f32 or bf16, f32 points (V, N, 2) on the same
     device."""
     fs, xs = feats.shape, xy.shape
     if len(fs) != 4 or len(xs) != 3 or xs[2] != 2:
@@ -58,7 +62,7 @@ def check_lookup(feats, xy, dtypes):
         raise ValueError(f"{fs[0]} maps but {xs[0]} point sets")
     if fs[1] < 2 or fs[2] < 2:
         raise ValueError(f"maps must be at least 2x2, got {tuple(fs)}")
-    if feats.dtype not in dtypes:
+    if feats.dtype not in DTYPE_CODE:
         raise TypeError(f"map dtype must be float32 or bfloat16, got {feats.dtype}")
     if xy.dtype != torch.float32:
         raise TypeError(f"points must be float32, got {xy.dtype}")
@@ -77,31 +81,29 @@ def piece_bytes(row_bytes: int, esize: int, *ptrs: int) -> int:
     return esize
 
 
-def launch_lookup(fn, feats, xy, dtype_code):
-    """One launch of a lookup kernel with the C signature of K2 and K3
-    (maps, xy, out, V, N, H, W, C, dtype, piece_bytes, stream) on the
-    current stream of the maps' device; returns the output and the kernel's
-    CUDA error code. Its host work is most of a call's time at the render's
-    shapes, so it takes the raw stream handle (`current_stream()` builds a
-    Stream object each call) and switches devices only when it must."""
+def launch_lookup(wrapper, name, feats, xy):
+    """One launch of lookup kernel `name` (K2 or K3: C function
+    `kpn_<name>` of library `name`, taking maps, xy, out, V, N, H, W, C,
+    dtype, piece_bytes), counted in `wrapper.launches`; returns the
+    output."""
     if not (feats.is_contiguous() and xy.is_contiguous()):
         raise ValueError("the kernel takes contiguous maps and points")
     V, H, W, C = feats.shape
     N = xy.shape[1]
-    out = feats.new_empty((V, N, C))
+    out = lookup_out(feats, xy)
     esize = feats.element_size()
     ptr, out_ptr = feats.data_ptr(), out.data_ptr()
     piece = piece_bytes(C * esize, esize, ptr, out_ptr)
-    index = feats.get_device()
+    fn = entry(name, f"kpn_{name}", *(ctypes.c_void_p,) * 3, *(ctypes.c_int,) * 7)
+    launch(wrapper, fn, feats, ptr, xy.data_ptr(), out_ptr, V, N, H, W, C,
+           DTYPE_CODE[feats.dtype], piece)
+    return out
 
-    def launch():
-        stream = torch._C._cuda_getCurrentRawStream(index)
-        return fn(ptr, xy.data_ptr(), out_ptr, V, N, H, W, C, dtype_code, piece, stream)
 
-    if index == torch.cuda.current_device():
-        return out, launch()
-    with torch.cuda.device(index):
-        return out, launch()
+def lookup_out(feats, xy):
+    """A lookup's (V, N, C) output in the maps' dtype, uninitialised: the
+    kernels' output buffer, and their ops' shapes under a trace."""
+    return feats.new_empty((feats.shape[0], xy.shape[1], feats.shape[3]))
 
 
 def multiview_bilinear_sample(feats, xy):

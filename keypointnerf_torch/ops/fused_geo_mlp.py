@@ -35,15 +35,13 @@ forward of a training step on the card always goes through the kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import torch
 
-from .dense import dot_f32, softplus100
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from ._build import DTYPE_CODE, check_device, define_op, entry, launch
+from .dense import autograd_records, dot_f32, softplus100
 
 
 def fold_weight_norm(mlp_geo) -> Tuple[torch.Tensor, ...]:
@@ -120,7 +118,7 @@ def sp_mlp_stack_plain(pts_cam, kpt_cam, f0, f1, mask, weight, ws, sp_level=3,
 def _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
     """Raise on what the kernel does not take; returns the widths
     (c0, c1, h1, h2, h3, dl, g1, g2, dout)."""
-    if compute_dtype not in _DTYPE_CODE:
+    if compute_dtype not in DTYPE_CODE:
         raise TypeError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     if len(ws) != 14:
         raise ValueError(f"expected 14 folded weights, got {len(ws)}")
@@ -272,7 +270,6 @@ def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, wid
     tensors = (*lead, f0, f1, mask, weight, *ws)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
-    fn = _kernel(sp_args is not None)
     c0, c1, h1, h2, h3, dl, g1, g2, dout = widths
     dev = f0.device
     out = torch.empty((N, dout), dtype=torch.float32, device=dev)
@@ -290,38 +287,20 @@ def _launch(wrapper, lead, f0, f1, mask, weight, ws, compute_dtype, sp_args, wid
     ptrs += [t.data_ptr() for t in (out, valid, lv, lf)]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     code = _ROUTE_CODE[route]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if sp_args is None:
-            dims = (V, N, lead[0].shape[-1], *widths, n_packed)
-            err = fn(c_ptrs, (ctypes.c_int * len(dims))(*dims), code, stream)
-        else:
-            level, sigma, scale = sp_args
-            dims = (V, N, K, level, *widths, n_packed)
-            err = fn(c_ptrs, (ctypes.c_int * len(dims))(*dims), float(sigma), float(scale),
-                     code, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_geo_mlp kernel launch ({route} route) failed: CUDA error {err}")
-    wrapper.launches += 1
+    arrays = (ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int))
+    if sp_args is None:
+        fn = entry("fused_geo_mlp", "kpn_geo_mlp", *arrays, ctypes.c_int)
+        dims = (V, N, lead[0].shape[-1], *widths, n_packed)
+        launch(wrapper, fn, f0, c_ptrs, (ctypes.c_int * len(dims))(*dims), code)
+    else:
+        fn = entry("fused_geo_mlp", "kpn_sp_geo_mlp", *arrays, ctypes.c_double,
+                   ctypes.c_double, ctypes.c_int)
+        level, sigma, scale = sp_args
+        dims = (V, N, K, level, *widths, n_packed)
+        launch(wrapper, fn, f0, c_ptrs, (ctypes.c_int * len(dims))(*dims), float(sigma),
+               float(scale), code)
     wrapper.launches_by_route[route] += 1
     return out, valid, lv, lf
-
-
-@functools.cache
-def _kernel(sp: bool):
-    from ._build import load
-
-    lib = load("fused_geo_mlp")
-    if sp:
-        fn = lib.kpn_sp_geo_mlp
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_double, ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
-    else:
-        fn = lib.kpn_geo_mlp
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                       ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _plain(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
@@ -330,40 +309,15 @@ def _plain(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
     return sp_mlp_stack_plain(*lead, f0, f1, mask, weight, ws, *sp_args, compute_dtype)
 
 
-# K4 and K5 as registered ops (`torch.ops.kpnerf.geo_mlp` / `sp_geo_mlp`):
-# the kernel on CUDA (counted on the public wrapper), the plain stack on the
-# CPU, the output shapes alone under a trace. Inputs are checked before the
-# op is called.
-_Outs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-
-
-@torch.library.custom_op("kpnerf::geo_mlp", mutates_args=(), device_types="cuda")
-def geo_mlp_op(sp: torch.Tensor, f0: torch.Tensor, f1: torch.Tensor, mask: torch.Tensor,
-               weight: torch.Tensor, ws: List[torch.Tensor],
-               compute_dtype: torch.dtype) -> _Outs:
+def _launch_k4(sp, f0, f1, mask, weight, ws, compute_dtype):
     return _launch(geo_mlp_apply, (sp,), f0, f1, mask, weight, ws, compute_dtype, None,
                    _widths(f0, f1, ws))
 
 
-@geo_mlp_op.register_kernel("cpu")
-def _(sp, f0, f1, mask, weight, ws, compute_dtype):
-    return mlp_stack_plain(sp, f0, f1, mask, weight, ws, compute_dtype)
-
-
-@torch.library.custom_op("kpnerf::sp_geo_mlp", mutates_args=(), device_types="cuda")
-def sp_geo_mlp_op(pts_cam: torch.Tensor, kpt_cam: torch.Tensor, f0: torch.Tensor,
-                  f1: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
-                  ws: List[torch.Tensor], sp_level: int, sp_sigma: float, sp_scale: float,
-                  compute_dtype: torch.dtype) -> _Outs:
+def _launch_k5(pts_cam, kpt_cam, f0, f1, mask, weight, ws, sp_level, sp_sigma, sp_scale,
+               compute_dtype):
     return _launch(sp_geo_mlp_apply, (pts_cam, kpt_cam), f0, f1, mask, weight, ws,
                    compute_dtype, (sp_level, sp_sigma, sp_scale), _widths(f0, f1, ws))
-
-
-@sp_geo_mlp_op.register_kernel("cpu")
-def _(pts_cam, kpt_cam, f0, f1, mask, weight, ws, sp_level, sp_sigma, sp_scale,
-      compute_dtype):
-    return sp_mlp_stack_plain(pts_cam, kpt_cam, f0, f1, mask, weight, ws, sp_level,
-                              sp_sigma, sp_scale, compute_dtype)
 
 
 def _fake_outs(f0, ws):
@@ -373,20 +327,27 @@ def _fake_outs(f0, ws):
     return empty(N, dout), empty(N, 1), empty(V, N, dl), empty(N, 2 * dl)
 
 
-geo_mlp_op.register_fake(lambda sp, f0, f1, mask, weight, ws, dt: _fake_outs(f0, ws))
-sp_geo_mlp_op.register_fake(
+# K4 and K5 as registered ops: the kernel on CUDA (counted on the public
+# wrapper), the plain stack on the CPU, the output shapes alone under a
+# trace. Inputs are checked before the op is called.
+_OUTS = "(Tensor, Tensor, Tensor, Tensor)"
+_GEO_MLP = define_op(
+    "geo_mlp(Tensor sp, Tensor f0, Tensor f1, Tensor mask, Tensor weight, Tensor[] ws, "
+    f"ScalarType compute_dtype) -> {_OUTS}", _launch_k4, mlp_stack_plain,
+    lambda sp, f0, f1, mask, weight, ws, dt: _fake_outs(f0, ws))
+_SP_GEO_MLP = define_op(
+    "sp_geo_mlp(Tensor pts_cam, Tensor kpt_cam, Tensor f0, Tensor f1, Tensor mask, "
+    "Tensor weight, Tensor[] ws, SymInt sp_level, float sp_sigma, float sp_scale, "
+    f"ScalarType compute_dtype) -> {_OUTS}", _launch_k5, sp_mlp_stack_plain,
     lambda pts_cam, kpt_cam, f0, f1, mask, weight, ws, lvl, sigma, scale, dt:
     _fake_outs(f0, ws))
 
 
 def _call_op(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args):
-    if f0.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no kernel for device {f0.device}")
+    check_device(f0)
     if sp_args is None:
-        return torch.ops.kpnerf.geo_mlp.default(*lead, f0, f1, mask, weight, list(ws),
-                                                compute_dtype)
-    return torch.ops.kpnerf.sp_geo_mlp.default(*lead, f0, f1, mask, weight, list(ws),
-                                               *sp_args, compute_dtype)
+        return _GEO_MLP(*lead, f0, f1, mask, weight, list(ws), compute_dtype)
+    return _SP_GEO_MLP(*lead, f0, f1, mask, weight, list(ws), *sp_args, compute_dtype)
 
 
 class _FusedGeoMLP(torch.autograd.Function):
@@ -425,7 +386,7 @@ def _apply(compute_dtype, sp_args, lead, f0, f1, mask, weight, ws):
     directly where it does not (inference, an export trace)."""
     _check(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args)
     tensors = (*lead, f0, f1, mask, weight, *ws)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if autograd_records(*tensors):
         return _FusedGeoMLP.apply(compute_dtype, sp_args, len(lead), *tensors)
     return _call_op(lead, f0, f1, mask, weight, ws, compute_dtype, sp_args)
 

@@ -22,14 +22,8 @@ steps as tensor ops.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
-import torch
-
-from .feat_sample import bilinear_coords, check_lookup, gather_corners, launch_lookup
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from ._build import check_device, define_op
+from .feat_sample import bilinear_coords, check_lookup, gather_corners, launch_lookup, lookup_out
 
 
 def onehot_bilinear_plain(feats, xy):
@@ -53,41 +47,12 @@ def onehot_bilinear_plain(feats, xy):
     return (rnd(xw0 * t0) + rnd(xw1 * t1)).to(dt)
 
 
-@functools.cache
-def _kernel():
-    from ._build import load
-
-    fn = load("onehot_bilinear").kpn_onehot_bilinear
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(feats, xy):
-    out, err = launch_lookup(_kernel(), feats, xy, _DTYPE_CODE[feats.dtype])
-    if err != 0:
-        raise RuntimeError(f"onehot_bilinear kernel launch failed: CUDA error {err}")
-    multiview_onehot_bilinear_sample.launches += 1
-    return out
+    return launch_lookup(multiview_onehot_bilinear_sample, "onehot_bilinear", feats, xy)
 
 
-@torch.library.custom_op("kpnerf::onehot_bilinear", mutates_args=(), device_types="cuda")
-def onehot_bilinear_op(feats: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
-    """K2 as a registered op (`torch.ops.kpnerf.onehot_bilinear`): the
-    kernel on CUDA, `onehot_bilinear_plain` on the CPU, shapes alone under
-    a trace, so an exported program carries it."""
-    return _launch(feats, xy)
-
-
-onehot_bilinear_op.register_kernel("cpu")(onehot_bilinear_plain)
-
-
-@onehot_bilinear_op.register_fake
-def _(feats, xy):
-    return feats.new_empty((feats.shape[0], xy.shape[1], feats.shape[3]))
-
-
-_OP = torch.ops.kpnerf.onehot_bilinear.default
+_OP = define_op("onehot_bilinear(Tensor feats, Tensor xy) -> Tensor", _launch,
+                onehot_bilinear_plain, lookup_out)
 
 
 def multiview_onehot_bilinear_sample(feats, xy):
@@ -98,9 +63,8 @@ def multiview_onehot_bilinear_sample(feats, xy):
     `multiview_onehot_bilinear_sample.launches`), CPU tensors to the plain
     version, both through the registered op.
     """
-    check_lookup(feats, xy, _DTYPE_CODE)
-    if feats.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"no kernel for device {feats.device}")
+    check_lookup(feats, xy)
+    check_device(feats)
     return _OP(feats, xy)
 
 

@@ -30,14 +30,12 @@ order on the CPU).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from ..utils.profiling import span
+from ._build import DTYPE_CODE, entry, launch
 from .feat_sample import bilinear_coords
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def onehot_dmap_plain(xy, g, H, W, map_dtype=torch.bfloat16):
@@ -73,9 +71,9 @@ def _check(xy, g, H, W, map_dtype):
         )
     if H < 2 or W < 2:
         raise ValueError(f"maps must be at least 2x2, got {H}x{W}")
-    if map_dtype not in _DTYPE_CODE:
+    if map_dtype not in DTYPE_CODE:
         raise TypeError(f"map dtype must be float32 or bfloat16, got {map_dtype}")
-    if xy.dtype != torch.float32 or g.dtype not in _DTYPE_CODE:
+    if xy.dtype != torch.float32 or g.dtype not in DTYPE_CODE:
         raise TypeError(f"points must be float32 and the cotangent float32 or bfloat16, "
                         f"got {xy.dtype}, {g.dtype}")
     if xy.device != g.device:
@@ -101,43 +99,20 @@ def scratch_bytes(V, N, H, W, C):
     return -(-4 * ints // 16) * 16 + 4 * 3 * cells * C + 4 * 2 * segments * 4 * C
 
 
-@functools.cache
-def _kernel():
-    from ._build import load
-
-    fn = load("onehot_dmap").kpn_onehot_dmap
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(xy, g, H, W, map_dtype):
     if not (xy.is_contiguous() and g.is_contiguous()):
         raise ValueError("the kernel takes contiguous points and cotangent")
     if xy.data_ptr() % 8:
         xy = xy.clone()                       # the kernel reads a point as a float2
     V, N, C = g.shape
-    index = g.get_device()
     # one C call writes every texel of the output and launches every pass
     dmap = torch.empty((V, H, W, C), dtype=torch.float32, device=g.device)
     size = scratch_bytes(V, N, H, W, C)
     scratch = torch.empty(size, dtype=torch.uint8, device=g.device)
-
-    def launch():
-        stream = torch._C._cuda_getCurrentRawStream(index)
-        return _kernel()(xy.data_ptr(), g.data_ptr(), dmap.data_ptr(), scratch.data_ptr(),
-                         size, V, N, H, W, C, _DTYPE_CODE[map_dtype], _DTYPE_CODE[g.dtype],
-                         stream)
-
-    if index == torch.cuda.current_device():
-        err = launch()
-    else:
-        with torch.cuda.device(index):
-            err = launch()
-    if err != 0:
-        raise RuntimeError(f"onehot_dmap kernel launch failed: CUDA error {err}")
-    multiview_dmap_onehot.launches += 1
+    fn = entry("onehot_dmap", "kpn_onehot_dmap", *(ctypes.c_void_p,) * 4, ctypes.c_int64,
+               *(ctypes.c_int,) * 7)
+    launch(multiview_dmap_onehot, fn, g, xy.data_ptr(), g.data_ptr(), dmap.data_ptr(),
+           scratch.data_ptr(), size, V, N, H, W, C, DTYPE_CODE[map_dtype], DTYPE_CODE[g.dtype])
     return dmap
 
 

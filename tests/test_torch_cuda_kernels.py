@@ -1,7 +1,8 @@
 """The port's lookup kernels (K2, K3), the fused geometry MLP's bf16
 routes (K4 / K5, wgmma and wmma), the map gradient K1, the fused
 composite K6 and the module path's dense layer (`dense_act`) against their
-plain versions on a CUDA card. Every test here
+plain versions on a CUDA card, and the one launch they share
+(`ops._build.launch`: its error check and count). Every test here
 needs the card (marker `cuda`) and skips without one.
 
 This file imports nothing of JAX or Flax, so it runs where the JAX
@@ -33,6 +34,7 @@ torch = pytest.importorskip("torch")
 
 from keypointnerf_torch.models.mlp import GeoFusionMLP  # noqa: E402
 from keypointnerf_torch.ops import dma_gather as k3  # noqa: E402
+from keypointnerf_torch.ops._build import launch  # noqa: E402
 from keypointnerf_torch.ops import fused_geo_mlp as fg  # noqa: E402
 from keypointnerf_torch.ops import onehot_bilinear as k2  # noqa: E402
 from keypointnerf_torch.ops.feat_sample import piece_bytes  # noqa: E402
@@ -493,3 +495,27 @@ def test_dense_act_launches_per_frame_and_step(dev):
     train_step_fn(model, recipe.loss, state, vb, TrainDraws.sample(recipe.model, vb, gen))
     torch.cuda.synchronize()
     assert da.fused_dense_act.launches == before
+
+
+def test_launch_checks_the_error_code_and_counts(dev):
+    """The one launch every wrapper takes (`_build.launch`): the entry point
+    gets its arguments and the raw current stream last; a nonzero CUDA
+    error code raises RuntimeError naming the kernel and counts nothing, a
+    zero one counts one launch."""
+    calls = []
+
+    def kpn_stub(*args):
+        calls.append(args)
+        return calls[-1][0]
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    on = torch.empty(1, device=dev)
+    with pytest.raises(RuntimeError, match="kpn_stub kernel launch failed: CUDA error 719"):
+        launch(wrapper, kpn_stub, on, 719)
+    assert wrapper.launches == 0
+    launch(wrapper, kpn_stub, on, 0)
+    assert wrapper.launches == 1
+    assert calls[-1] == (0, torch.cuda.current_stream(dev).cuda_stream)

@@ -2,10 +2,8 @@
 
 On the CPU the registered op runs its plain version, which is the module
 path's composition itself (`spatial_encode`, then the cast to bf16), so
-every CPU bit is unchanged; `query_head` takes the op only where `sp_type`
-is `rel_z_decay`, the compute dtype is bf16, no gradient is needed and the
-tensors lie on a device of `ops.rel_z_decay.DEVICES` (the card's: the
-routing tests add the CPU to it to reach the route here).
+every CPU bit is unchanged; the query takes the op only where `sp_type`
+is `rel_z_decay`, the compute dtype is bf16 and no gradient is needed.
 
 On the card (marker `cuda`; this file imports nothing of JAX, so it runs
 there: `python -m pytest tests/test_torch_rel_z_decay.py -q`) the kernel
@@ -105,8 +103,7 @@ def fast():
 
 @pytest.fixture
 def spied(monkeypatch):
-    """The op's calls from `query_head`, with the CPU among the devices the
-    route takes."""
+    """The op's calls from the query."""
     calls, real = [], rzd.fused_rel_z_decay
 
     def spy(*args):
@@ -114,7 +111,6 @@ def spied(monkeypatch):
         return real(*args)
 
     monkeypatch.setattr(rzd, "fused_rel_z_decay", spy)
-    monkeypatch.setattr(rzd, "DEVICES", ("cuda", "cpu"))
     return calls
 
 
@@ -128,7 +124,7 @@ def test_route_engages_once_a_bf16_inference_query(fast, spied, monkeypatch):
     with torch.no_grad():
         got = _query(model, fast)
     assert spied == [(3, fast[3].shape[0], 3)]
-    monkeypatch.setattr(rzd, "DEVICES", ("cuda",))
+    monkeypatch.setattr(rzd, "fused_rel_z_decay", _composed)
     with torch.no_grad():
         want = _query(model, fast)
     assert len(spied) == 1
