@@ -56,7 +56,17 @@ Phases (any failure exits nonzero):
      events beside its byte bound; the fast preset's launches of it in a
      256² and a 512² frame (one a query: 4 and 16); printed as one JSON
      line;
-  5. render: one 512² camera of the strict preset at full width (the zju
+  5. empty_cull: the empty-ray cull's kernel (csrc/empty_cull.cu) at an
+     orbit frame's rays (256², an orbit camera) and a 512² frame's, over
+     the fast preset's fused-map mask channel (its tight reduction), and
+     at the 512² frame over the source masks (the strict preset's plain
+     reduction): bit for bit against the composition, twice, timed by CUDA
+     events in turns with the composition beside its bound (the larger of
+     the bytes, the rays read once and the scores written once, and the
+     f32 issue of the composition's operations); the fast preset's
+     launches of it in a 256² and a 512² frame (one a frame); printed as
+     one JSON line;
+  6. render: one 512² camera of the strict preset at full width (the zju
      architecture, bf16, cull budget 0.1875, seeded random weights) on the
      synthetic 512² scene with 3 source views; checks finite outputs,
      cull_overflow == 0 and each kernel's launch count in that render, and
@@ -71,12 +81,13 @@ Phases (any failure exits nonzero):
      against composite + importance_z); and a 128² camera of a model at
      those non-zju widths with `use_pallas_geo_mlp` (K5 on the wmma
      route, every query) against the flag-off render;
-  6. fast (needs render): the model of configs/zju_fast.json, built by the
+  7. fast (needs render): the model of configs/zju_fast.json, built by the
      port's load_config / get_model (its model section checked equal to
      fast_preset(), its seeded weights to the strict camera's), renders the
      same 512² camera at chunk 8192: the fused map halved to 3 x 256² x 84
      bf16, finite outputs, cull_overflow == 0, none of K1-K6 launched,
-     dense_act 7 times a query (112) and rel_z_decay once (16),
+     dense_act 7 times a query (112), rel_z_decay once (16) and the
+     cull's empty_ray_scores once,
      each query's points (the fine cut's int(8192 * 0.75) rays x 64) and
      fused-map lookup points (the lerp's 33 anchors of 64 samples)
      counted, culled == unculled bit for bit with the top-k cuts off;
@@ -89,13 +100,13 @@ Phases (any failure exits nonzero):
      frames' order only: the scanned renderer loops over render_image) and
      run_eval on 2 synthetic 512² samples with auto_cull_budget=1 (finite
      PSNR / SSIM, PNGs under build/chip_smoke_eval/);
-  7. agreement: toy-size f32 renders on the card against the same renders
+  8. agreement: toy-size f32 renders on the card against the same renders
      on the CPU (the paths the CPU tests hold against the JAX package),
      with each kernel's flag off and on, and the toy fast render (cull,
      coarse 0.5, fine 0.75): the rays each program's cull and cuts marched
      are recorded, at most 2 rays may differ in that status, every other
      ray is held at 1e-4 of each output's max as the strict renders are;
-  8. train: optimizer steps of the configs/zju.json recipe at full width,
+  9. train: optimizer steps of the configs/zju.json recipe at full width,
      read by the port's load_config (bf16, 64x64 patch, 64+64 samples,
      matmul VJP with K1, VGG loss on random frozen VGG19, Adam 5e-4) on
      the synthetic 512² scene: 2
@@ -129,10 +140,10 @@ Phases (any failure exits nonzero):
      version and the earlier K1 and timed at the step's own points, its
      byte bound and grid_sampler_2d_backward's time beside; K1 at all
      four of its calls as above; the step twice, bit for bit);
-  9. train agreement: one toy f32 step on the card against the same step
+ 10. train agreement: one toy f32 step on the card against the same step
      on the CPU (loss, every gradient, the updated parameters), with
      `use_pallas_geo_mlp`, `fused_feature_map` and `remat` off and on;
- 10. trainer: the port's training CLI (`python -m keypointnerf_torch.train`,
+ 11. trainer: the port's training CLI (`python -m keypointnerf_torch.train`,
      its main()) at full width on the synthetic 512² rig: 8 steps (finite
      train/ rows at 2, 4, 6, 8 and val/ rows at 4, 8 in metrics.jsonl,
      checkpoints 4 and 8, the best at the lower val loss), a second call
@@ -140,7 +151,7 @@ Phases (any failure exits nonzero):
      step (2 samples, finite PSNR / SSIM) and eval_zju on its PNG tree
      (within PNG rounding); the loop's s/step and the host's share making
      samples printed beside the bare step's;
- 11. model_rest: the rest of the model at full width: K5 at separate_cf's
+ 12. model_rest: the rest of the model at full width: K5 at separate_cf's
      3 outputs against its plain version at the strict render's coarse and
      fine (union) queries, on the wgmma route, timed with its bound; the
      512² strict camera with pool_mode attention_v0 and attention_v1, with
@@ -149,7 +160,7 @@ Phases (any failure exits nonzero):
      flag-off render by compare_renders' bounds); 1 + 2 zju steps with
      attention_v1 and separate_cf (finite, s/step); toy f32 renders and a
      step card vs CPU with both flags;
- 12. parallel: the zju step in a one-rank NCCL group (the all-reduced
+ 13. parallel: the zju step in a one-rank NCCL group (the all-reduced
      gradients and terms bit-equal to the step's own, the parameters to
      the update without a group; s/step with and without); the
      one-process step on a global batch of 2, twice, bit for bit;
@@ -165,7 +176,7 @@ Phases (any failure exits nonzero):
      a val and a checkpoint, a resume bit-equal to the saved state, to 4;
      rank 0 alone writes) and run_eval(sharded=True) on 2 samples (scores
      equal to the unsharded run's); each phase's seconds printed;
- 13. gate: the gate's step twice from its seed for GATE_REPEAT_STEPS
+ 14. gate: the gate's step twice from its seed for GATE_REPEAT_STEPS
      steps, bit for bit, K1 at all six calls of its first step as in the
      train phase, and its step in deterministic mode against torch's
      defaults in turns (what the mode and K1 add to a gate step); the
@@ -176,7 +187,7 @@ Phases (any failure exits nonzero):
      (torch.cuda's sync debug mode), the loss of the first and last chunk,
      finite seen / unseen PSNR / SSIM and the fast preset's cull overflow 0
      (the gate exits 1 otherwise);
- 14. data: a fake ZJU-MoCap tree at the dataset's geometry (1024² PNG
+ 15. data: a fake ZJU-MoCap tree at the dataset's geometry (1024² PNG
      images and the two grey masks a view, mask/ and mask_cihp/, their rows
      filtered as camera PNGs are, 21 cameras, every subject of both splits
      sharing files by symlink, 313 / 315 with empty image lists) under
@@ -187,7 +198,7 @@ Phases (any failure exits nonzero):
      K1 six times a step; s/step and the host's share), --run_val on the val
      split, and render_dynamic for 2 orbit frames with configs/zju_fast.json
      (cull_overflow 0);
- 15. export: the serving export (keypointnerf_torch/export.py, the kernels
+ 16. export: the serving export (keypointnerf_torch/export.py, the kernels
      as registered ops): the 512² strict camera with use_pallas_geo_mlp
      exported at chunk 2048 into build/chip_smoke_export/, loaded and run
      in a fresh process that imports only load_render (frames and overflow
@@ -199,16 +210,16 @@ Phases (any failure exits nonzero):
      each kernel's launches counted; the eager render before and after the
      exports bit-equal; export seconds, artifact bytes, load seconds and the
      loaded program's rays/s beside eager's;
- 16. reference_ckpt: a fake reference Lightning checkpoint of the seeded
+ 17. reference_ckpt: a fake reference Lightning checkpoint of the seeded
      full-width model (model.*, vgg_loss.*, Lightning's keys) imported by
      utils/import_reference.py into a fresh model: its 512² strict render
      bit-equal to the source model's;
- 17. icon: the port's ICON CLI (`python -m keypointnerf_torch.train_icon`,
+ 18. icon: the port's ICON CLI (`python -m keypointnerf_torch.train_icon`,
      its main()) at ICON's full widths on 512² blob scenes (200 steps, 8
      scenes, 2 eval scenes, 128³ grids): finite Chamfer / P2S, the OBJ
      files and icon_metrics.json; s/step, grid points/s, meshing seconds;
      then a toy f32 ICON step card vs CPU;
- 18. prints the kernels line, the card line and, last, the result line.
+ 19. prints the kernels line, the card line and, last, the result line.
 
 Every training step runs in the port's deterministic mode
 (keypointnerf_torch/device.py deterministic_training, a context around
@@ -1860,6 +1871,141 @@ def check_rel_z_decay(dev) -> dict:
     return entry
 
 
+def cull_ops_per_ray(mode, n_coarse, n_fine, stride, n_views) -> int:
+    """The f32 operations the composition of the empty-ray cull performs a
+    ray (a division, a floor or a clamp counted as one): per (point, view)
+    the projection's 9 products and 9 sums, 2 divisions, the NDC scale and
+    shift (4), the map coordinate (6), 2 clamps of 2 and the cell index (4);
+    per point o + d z (6); per coarse depth 3; per fine depth its two
+    midpoints (8) and the lerp (3)."""
+    from keypointnerf_torch.ops import empty_cull as cull_op
+
+    if mode == cull_op.TIGHT:
+        n_c = len(range(0, n_coarse, stride)) + 1
+        n_f = len(range(0, n_fine, stride)) + 1
+    else:
+        n_c, n_f = n_coarse, n_fine
+    per_view = 9 + 9 + 2 + 4 + 6 + 4 + 4
+    return (n_c + n_f) * (6 + n_views * per_view) + 3 * n_c + 11 * n_f
+
+
+def cull_args(render, *args, **kwargs):
+    """The op's arguments of the cull inside render(*args, **kwargs): the
+    op turned to the composition, whose one call is captured (and run)."""
+    from keypointnerf_torch.ops import empty_cull as cull_op
+
+    seen, op = [], cull_op.fused_empty_ray_scores
+
+    def capture(*a):
+        seen.append(a)
+        return cull_op.empty_ray_scores_plain(*a)
+
+    cull_op.fused_empty_ray_scores = capture
+    try:
+        render(*args, **kwargs)
+    finally:
+        cull_op.fused_empty_ray_scores = op
+    if len(seen) != 1:
+        raise SystemExit(f"the render scored its rays {len(seen)} times, not once")
+    return seen[0]
+
+
+def check_empty_cull(dev) -> dict:
+    """The empty-ray cull's kernel (`ops.empty_cull`, one launch a frame)
+    at an orbit frame's rays (256², the bench orbit's first camera) and a
+    512² frame's, with the fast preset's fused-map mask channel (the tight
+    reduction), and at the 512² frame with the source masks (the strict
+    preset's plain reduction): the kernel's scores against the
+    composition's (`empty_ray_scores_plain`), bit for bit, from two
+    launches; kernel and composition timed in turns by CUDA events beside
+    the bound (the larger of the bytes, the rays read once and the scores
+    written once, and the f32 issue of the composition's operations,
+    `cull_ops_per_ray`); then the fast preset's launches in a 256² and a
+    512² frame (one a frame). Prints one JSON line; returns the
+    kernels-line entry."""
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.geometry import camera_rays, pixel_grid
+    from keypointnerf_torch.models import ViewBatch, strict_preset
+    from keypointnerf_torch.ops import empty_cull as cull_op
+    from keypointnerf_torch.render import empty_ray_scores, render_image
+    from keypointnerf_torch.utils import get_model, load_config
+
+    exp = load_config(str(FAST_CONFIG))
+    vb = ViewBatch.from_numpy(make_sample(SyntheticConfig(image_size=RIG), seed=0), device=dev)
+    model = get_model(exp, device=dev)
+    with torch.no_grad():
+        feats = model.encode(vb.src_images, vb.src_masks)
+    R_orbit, t_orbit = orbit_camera(0.0)
+    half = 256
+    K_half = vb.tar_K * torch.tensor([[half / RIG], [half / RIG], [1.0]], device=dev)
+    cams = {"orbit256": (half, K_half, torch.as_tensor(R_orbit, dtype=torch.float32, device=dev),
+                         torch.as_tensor(t_orbit, dtype=torch.float32, device=dev)),
+            "frame512": (RIG, vb.tar_K, vb.tar_R, vb.tar_t)}
+    strict = strict_preset(exp.model)
+    cases = [("orbit256", exp.model, feats), ("frame512", exp.model, feats),
+             ("frame512_masks", strict, None)]
+    results = {}
+    for name, cfg, fts in cases:
+        size, K, R, t = cams[name.split("_")[0]]
+        pix = pixel_grid(size, size, device=dev).float()
+        rays = camera_rays(pix, K, R, t, cfg.znear, cfg.zfar)
+        args = cull_args(empty_ray_scores, cfg, vb, *rays, feats=fts)
+        n_rays = args[3].shape[0]
+        got = cull_op.fused_empty_ray_scores(*args)
+        again = cull_op.fused_empty_ray_scores(*args)
+        ref = cull_op.empty_ray_scores_plain(*args)
+        torch.cuda.synchronize()
+        differ = int((got != ref).sum())
+        same = torch.equal(got, again)
+        turns = []
+        for _ in range(2):
+            turns.append(cuda_ms(lambda: cull_op.fused_empty_ray_scores(*args), iters=50))
+            turns.append(cuda_ms(lambda: cull_op.empty_ray_scores_plain(*args), iters=5))
+        kernel_ms = float(np.median(turns[0::2]))
+        plain_ms = float(np.median(turns[1::2]))
+        V = args[0].shape[0]
+        n_bytes = n_rays * (3 * 4 + 4 + 4 + 4)
+        ops_per_ray = cull_ops_per_ray(args[6], cfg.n_coarse, cfg.n_fine,
+                                       cfg.gather_lerp_stride, V)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        issue_ms = n_rays * ops_per_ray / F32_ISSUE_PER_S * 1e3
+        bound = max(bytes_ms, issue_ms)
+        over = float((ref > 0.09).float().mean())
+        print(f"empty_ray_scores, {name} ({n_rays} rays, reduction {args[6]}, cell table "
+              f"{tuple(args[0].shape)}): {differ} of {n_rays} scores differ from the "
+              f"composition; two launches bit-equal {same}; {over:.4f} of the rays over the "
+              f"threshold; kernel {kernel_ms:.4f} ms, composition {plain_ms:.4f} ms (turns "
+              f"{[round(x, 4) for x in turns]}), bound {bound:.4f} ms (f32 issue "
+              f"{issue_ms:.4f} ms, {ops_per_ray} operations a ray; bytes {bytes_ms:.4f} ms; "
+              f"{kernel_ms / bound:.2f}x)", flush=True)
+        if differ or not same:
+            raise SystemExit(f"empty_ray_scores differs from its composition ({name})")
+        results[name] = {"rays": n_rays, "ms": kernel_ms, "plain_ms": plain_ms,
+                         "bound_ms": bound, "issue_ms": issue_ms, "bytes_ms": bytes_ms,
+                         "turns_ms": turns, "over": over}
+
+    frames = {}
+    for size in (256, 512):
+        render_image(model, vb, height=size, width=size, chunk=8192)      # warm-up
+        cull_op.fused_empty_ray_scores.launches = 0
+        render_image(model, vb, height=size, width=size, chunk=8192)
+        torch.cuda.synchronize()
+        frames[str(size)] = cull_op.fused_empty_ray_scores.launches
+    print(f"empty_ray_scores launches of the fast preset: {frames} (256², 512² frames; "
+          f"expected one a frame)", flush=True)
+    if frames != {"256": 1, "512": 1}:
+        raise SystemExit("the fast preset does not score its rays once a frame")
+    del model, feats
+    main = results["frame512"]
+    entry = {"name": "empty_ray_scores", "route": "cuda",
+             "source": "keypointnerf_torch/csrc/empty_cull.cu", "replaces": None,
+             "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": "f32 issue", "library_ms": None,
+             "cases": results, "frame_launches": frames}
+    print(json.dumps({"empty_ray_scores": entry}), flush=True)
+    return entry
+
+
 def orbit_camera(ang):
     from keypointnerf_torch.data import look_at
 
@@ -2407,7 +2553,8 @@ def kernel_wrappers() -> dict:
             "dma_gather": ops.multiview_bilinear_sample_dma,
             "composite_importance": ops.fused_composite_importance,
             "dense_act": ops.fused_dense_act,
-            "rel_z_decay": ops.fused_rel_z_decay}
+            "rel_z_decay": ops.fused_rel_z_decay,
+            "empty_ray_scores": ops.fused_empty_ray_scores}
 
 
 @contextlib.contextmanager
@@ -2501,9 +2648,10 @@ def render_fast(dev, strict) -> dict:
     if overflow != 0.0:
         raise SystemExit("empty-ray cull budget exceeded on the fast render")
     # every layer of the geometry MLP as one dense_act launch: 7 a query,
-    # coarse and fine in every chunk, and the encoding as one rel_z_decay
-    # launch a query; none of K1-K6
-    want = {"dense_act": 7 * 2 * n_chunks, "rel_z_decay": 2 * n_chunks}
+    # coarse and fine in every chunk, the encoding as one rel_z_decay
+    # launch a query and the cull's scores as one launch a frame; none of
+    # K1-K6
+    want = {"dense_act": 7 * 2 * n_chunks, "rel_z_decay": 2 * n_chunks, "empty_ray_scores": 1}
     if launched != want:
         raise SystemExit(f"the fast path launched {launched}, not {want}")
 
@@ -4551,7 +4699,7 @@ wrappers = {"onehot_bilinear": ops.multiview_onehot_bilinear_sample,
             "fused_geo_mlp": ops.geo_mlp_apply, "sp_fused_geo_mlp": ops.sp_geo_mlp_apply,
             "dma_gather": ops.multiview_bilinear_sample_dma,
             "composite_importance": ops.fused_composite_importance,
-            "dense_act": ops.fused_dense_act}
+            "dense_act": ops.fused_dense_act, "empty_ray_scores": ops.fused_empty_ray_scores}
 for w in wrappers.values():
     w.launches = 0
 t0 = time.perf_counter()
@@ -4717,10 +4865,11 @@ def export_phase(dev, procs) -> dict:
     k = res["launches"]
     if not (equal and overflow == 0.0 and res["raised"] and not res["models"]
             and not res["jax"] and k["onehot_bilinear"] == expected
-            and k["sp_fused_geo_mlp"] == expected
+            and k["sp_fused_geo_mlp"] == expected and k["empty_ray_scores"] == 1
             and k["fused_geo_mlp"] == k["dma_gather"] == k["composite_importance"] == 0):
         raise SystemExit("the loaded artifact does not reproduce the eager render")
-    artifact_launches = {"onehot_bilinear": expected, "sp_fused_geo_mlp": expected}
+    artifact_launches = {"onehot_bilinear": expected, "sp_fused_geo_mlp": expected,
+                         "empty_ray_scores": 1}
 
     wrappers = kernel_wrappers()
     half = EXPORT_SIZES["under"]
@@ -4753,7 +4902,8 @@ def export_phase(dev, procs) -> dict:
           f"export {timings['multicam']['export_s']:.1f} s, {timings['multicam']['bytes']} "
           f"bytes, load {load_s:.1f} s", flush=True)
     if not (equal and float(ov) == 0.0 and frames.shape == (2, half, half, 3)
-            and not torch.equal(frames[0], frames[1])):
+            and not torch.equal(frames[0], frames[1])
+            and mc_launches.get("empty_ray_scores") == 2):
         raise SystemExit("the multi-camera artifact disagrees with the single-camera renders")
 
     # K3, K4 and K6 in an artifact: a 64² camera of the fused map with K3,
@@ -4912,8 +5062,9 @@ def icon_agreement_small(dev) -> None:
         raise SystemExit("the card's ICON step disagrees with the CPU's")
 
 
-PHASES = ("kernels", "rel_z_decay", "render", "fast", "agreement", "train", "train_agreement", "trainer",
-          "model_rest", "parallel", "gate", "data", "export", "reference_ckpt", "icon")
+PHASES = ("kernels", "rel_z_decay", "empty_cull", "render", "fast", "agreement", "train",
+          "train_agreement", "trainer", "model_rest", "parallel", "gate", "data", "export",
+          "reference_ckpt", "icon")
 
 
 def main() -> int:
@@ -4989,6 +5140,13 @@ def main() -> int:
         entries["rel_z_decay"] = check_rel_z_decay(dev)
         launches["rel_z_decay"] = entries["rel_z_decay"]["frame_launches"]["512"]
         print(f"phase rel_z_decay {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if "empty_cull" in todo:
+        t0 = time.perf_counter()
+        phase("empty_cull: the empty-ray cull's scores, one launch a frame")
+        entries["empty_ray_scores"] = check_empty_cull(dev)
+        launches["empty_ray_scores"] = entries["empty_ray_scores"]["frame_launches"]["512"]
+        print(f"phase empty_cull {time.perf_counter() - t0:.1f} s", flush=True)
 
     if "render" in todo:
         t0 = time.perf_counter()

@@ -39,50 +39,63 @@ def stratified_z(near, far, n_samples, u=None):
     return near + (far - near) * z
 
 
-def importance_z(contrib, z_bins, n_samples, u=None):
-    """Inverse-CDF importance resampling of ray depths.
+def inverse_cdf(contrib, n_samples, u=None):
+    """`importance_z`'s inverse CDF, apart from the depths.
 
-    `searchsorted(right=True)` by counting comparisons, idx = #{cdf_j <= u},
-    with the JAX package's floor (+1e-5), its top-edge clamp (u >= cdf_M,
-    e.g. the uniform u = 1, selects the last edge) and its den < 1e-5 guard.
-    The bins are picked with gathers; the JAX package contracts a one-hot
-    with one nonzero, which moves the same values exactly.
-
-    contrib: (..., M) per-bin weights; z_bins: (..., M + 1) edge depths;
-    `u` (..., n_samples) explicit CDF samples, None for the evenly spaced
-    eval samples. Returns (..., n_samples) depths (sorted when u is).
+    contrib: (..., M) per-bin weights; `u` as for `importance_z`. Returns,
+    per sample, the edge index `j` (..., n) at or below u (j + 1 the edge
+    above it, M + 1 meaning edge M again), `hit` (some edge lies at or below
+    u) and the fraction (u - cdf_prev) / den of the bin at which the sample
+    lies, with the last edge's cdf where not `hit`.
     """
-    dtype = z_bins.dtype
-    contrib = contrib.to(dtype) + 1e-5
+    contrib = contrib + 1e-5
     pdf = contrib / contrib.sum(dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)  # (..., M+1)
 
     shape = cdf.shape[:-1] + (n_samples,)
     if u is None:
-        u = linspace01(n_samples, dtype, z_bins.device).expand(shape)
+        u = linspace01(n_samples, cdf.dtype, cdf.device).expand(shape)
 
     count = (cdf[..., :, None] <= u[..., None, :]).sum(dim=-2)  # (..., n)
     hit = count > 0
     j = (count - 1).clamp(min=0)
     pad_cdf = torch.cat([cdf, cdf[..., -1:]], dim=-1)
-    pad_z = torch.cat([z_bins, z_bins[..., -1:]], dim=-1)
     cdf_prev = torch.gather(cdf, -1, j)
     cdf_next = torch.gather(pad_cdf, -1, j + 1)
-    z_prev = torch.gather(z_bins, -1, j)
-    z_next = torch.gather(pad_z, -1, j + 1)
 
     # no edge <= u (u < 0 or NaN): fall back to the last bin, as JAX does
     last_cdf = cdf[..., -1:].expand(shape)
-    last_z = z_bins[..., -1:].expand(shape)
     cdf_prev = torch.where(hit, cdf_prev, last_cdf)
     cdf_next = torch.where(hit, cdf_next, last_cdf)
-    z_prev = torch.where(hit, z_prev, last_z)
-    z_next = torch.where(hit, z_next, last_z)
 
     den = cdf_next - cdf_prev
     den = torch.where(den < 1e-5, torch.ones_like(den), den)
-    return z_prev + (u - cdf_prev) / den * (z_next - z_prev)
+    return j, hit, (u - cdf_prev) / den
+
+
+def importance_z(contrib, z_bins, n_samples, u=None):
+    """Inverse-CDF importance resampling of ray depths.
+
+    `searchsorted(right=True)` by counting comparisons, idx = #{cdf_j <= u},
+    with the JAX package's floor (+1e-5), its top-edge clamp (u >= cdf_M,
+    e.g. the uniform u = 1, selects the last edge) and its den < 1e-5 guard
+    (`inverse_cdf`). The bins are picked with gathers; the JAX package
+    contracts a one-hot with one nonzero, which moves the same values
+    exactly.
+
+    contrib: (..., M) per-bin weights; z_bins: (..., M + 1) edge depths;
+    `u` (..., n_samples) explicit CDF samples, None for the evenly spaced
+    eval samples. Returns (..., n_samples) depths (sorted when u is).
+    """
+    j, hit, frac = inverse_cdf(contrib.to(z_bins.dtype), n_samples, u)
+    pad_z = torch.cat([z_bins, z_bins[..., -1:]], dim=-1)
+    z_prev = torch.gather(z_bins, -1, j)
+    z_next = torch.gather(pad_z, -1, j + 1)
+    last_z = z_bins[..., -1:].expand(j.shape)
+    z_prev = torch.where(hit, z_prev, last_z)
+    z_next = torch.where(hit, z_next, last_z)
+    return z_prev + frac * (z_next - z_prev)
 
 
 def union_sorted_z(z_coarse, z_fine):

@@ -1,6 +1,7 @@
 from .composite_importance import composite_importance_plain, fused_composite_importance
 from .dense_act import dense_act_plain, fused_dense_act
 from .dma_gather import dma_gather_plain, multiview_bilinear_sample_dma
+from .empty_cull import empty_ray_scores_plain, fused_empty_ray_scores
 from .feat_sample import (
     bilinear_sample,
     multiview_bilinear_sample,
@@ -22,9 +23,11 @@ __all__ = [
     "composite_importance_plain",
     "dense_act_plain",
     "dma_gather_plain",
+    "empty_ray_scores_plain",
     "fold_weight_norm",
     "fused_composite_importance",
     "fused_dense_act",
+    "fused_empty_ray_scores",
     "fused_rel_z_decay",
     "geo_mlp_apply",
     "mlp_stack_plain",

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # every kernel source of the port, by name (csrc/<name>.cu)
 KERNELS = ("onehot_bilinear", "onehot_dmap", "fused_geo_mlp", "dma_gather",
-           "composite_importance", "dense_act", "rel_z_decay")
+           "composite_importance", "dense_act", "rel_z_decay", "empty_cull")
 # the dtype codes of the kernels' C interfaces
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = (

@@ -37,6 +37,9 @@ Why the bound is conservative:
      all the ray's samples, which bounds any mix along the ray.
    The bound follows `cfg.gather_lerp` alone, also where `use_dma_gather`
    turns the lerp off in the query (as the JAX package chooses).
+
+On the card the scores come from one kernel a frame (`ops/empty_cull.py`,
+csrc/empty_cull.cu), which repeats the composition's f32 operations.
 """
 from __future__ import annotations
 
@@ -46,8 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry.aabb import ray_aabb_intersection
-from ..geometry.cameras import compose_krt, ndc_xy, project_points
-from ..geometry.sampling import importance_z, stratified_z
+from ..geometry.cameras import compose_krt
+from ..ops import empty_cull as cull_op
 
 # Rays with score <= threshold are provably all-invalid.
 EMPTY_SCORE_THRESHOLD = 0.09
@@ -70,16 +73,8 @@ def conservative_mask_cells(masks, cell):
     return F.max_pool2d(m[:, None], cell + 1, stride=cell)[:, 0]
 
 
-def _cell_lookup(cmax, cy, cx):
-    """(V, P) bf16-rounded cell values at int cell indices (V, P)."""
-    V, hc, wc = cmax.shape
-    flat = cmax.to(torch.bfloat16).float().reshape(-1)
-    view = torch.arange(V, device=cmax.device)[:, None]
-    return flat[(view * hc + cy) * wc + cx]
-
-
-def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096,
-                     feats=None):
+def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8,
+                     score_chunk=cull_op.SCORE_CHUNK, feats=None):
     """Per-ray conservative foreground scores.
 
     cfg: KeypointNeRFConfig (n_coarse / n_fine / znear / zfar); vb:
@@ -87,8 +82,12 @@ def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096,
     from `KeypointNeRF.encode`, required with `cfg.fused_feature_map` (the
     bound is then the fused map's mask channel). Returns (R,) f32;
     score <= EMPTY_SCORE_THRESHOLD => the ray's output is exactly zero.
-    Rays are scored `score_chunk` at a time to bound memory; the scores do
-    not depend on the chunking.
+
+    The cell table, the projection matrices and the AABB clamp are made
+    once a frame. Rays on the card are then scored by one kernel
+    (`fused_empty_ray_scores`), rays on the CPU by the composition
+    (`empty_ray_scores_plain`), `score_chunk` rays at a time to bound
+    memory. Both give the same bits, whatever the chunking.
     """
     H, W = vb.src_masks.shape[1:3]          # the NDC convention of the projection
     if feats is not None and "fused" in feats:
@@ -100,16 +99,13 @@ def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096,
             "must be built from the fused map's mask channel)")
     else:
         mask_map = vb.src_masks
-    V, Hm, Wm = mask_map.shape[:3]
+    Hm, Wm = mask_map.shape[1:3]
     lerp_mode = (feats is not None and "fused" in feats
                  and cfg.gather_lerp and cfg.gather_lerp_stride >= 2)
-    lerp_tight = lerp_mode and cfg.reuse_coarse_eval and not cfg.separate_cf
-    if lerp_tight:
-        # each group's anchor positions: every stride-th sample and the last
-        k = cfg.gather_lerp_stride
-        anchors = lambda S: torch.cat([torch.arange(0, S, k), torch.tensor([S - 1])])  # noqa: E731
-        ia_c = anchors(cfg.n_coarse).to(dirs.device)
-        ia_f = anchors(cfg.n_fine).to(dirs.device)
+    if lerp_mode and cfg.reuse_coarse_eval and not cfg.separate_cf:
+        mode = cull_op.TIGHT
+    else:
+        mode = cull_op.LOOSE if lerp_mode else cull_op.PLAIN
     cmax = conservative_mask_cells(mask_map.float(), cell)
     krt = compose_krt(vb.src_K, vb.src_R, vb.src_t)
 
@@ -117,35 +113,11 @@ def empty_ray_scores(cfg, vb, origin, dirs, near, far, cell=8, score_chunk=4096,
     near = torch.where(hit & (z1 > near), z1, near)
     far = torch.where(hit & (z2 < far), z2, far)
 
-    scores = []
-    for s in range(0, dirs.shape[0], score_chunk):
-        d, nr, fr = dirs[s:s + score_chunk], near[s:s + score_chunk], far[s:s + score_chunk]
-        z = stratified_z(nr, fr, cfg.n_coarse)
-        z_mid = 0.5 * (z[..., 1:] + z[..., :-1])
-        zf = importance_z(torch.zeros_like(z[..., : cfg.n_coarse - 2]), z_mid, cfg.n_fine)
-        if lerp_tight:
-            z_all = torch.cat([z[:, ia_c], zf[:, ia_f]], dim=-1)
-        else:
-            z_all = torch.cat([z, zf], dim=-1)                   # (c, S)
-        pts = origin + d[:, None, :] * z_all[..., None]
-        xy_pix, _ = project_points(pts.reshape(1, -1, 3), krt)   # (V, c*S, 2)
-        xy = ndc_xy(xy_pix, W, H)
-        # the sampler's NDC -> pixel map and border clamp, onto the map grid
-        px = ((xy[..., 0] + 1.0) * 0.5 * (Wm - 1)).clamp(0.0, Wm - 1.0)
-        py = ((xy[..., 1] + 1.0) * 0.5 * (Hm - 1)).clamp(0.0, Hm - 1.0)
-        cx = torch.floor(px / cell).long()
-        cy = torch.floor(py / cell).long()
-        vals = _cell_lookup(cmax, cy, cx).reshape(V, -1, z_all.shape[-1])
-        if lerp_tight:
-            # max_pool1d pads with -inf, as reduce_window's SAME padding does
-            group = lambda v: F.max_pool1d(v, 3, stride=1, padding=1).amin(0).amax(-1)  # noqa: E731
-            n_c = ia_c.shape[0]
-            scores.append(torch.maximum(group(vals[..., :n_c]), group(vals[..., n_c:])))
-        elif lerp_mode:
-            scores.append(vals.amax(dim=-1).amin(dim=0))
-        else:
-            scores.append(vals.amin(dim=0).amax(dim=-1))
-    return torch.cat(scores)
+    args = (cmax, krt, origin, dirs, near, far, mode, cfg.n_coarse, cfg.n_fine,
+            cfg.gather_lerp_stride, H, W, Hm, Wm, cell)
+    if dirs.is_cuda:
+        return cull_op.fused_empty_ray_scores(*args)
+    return cull_op.empty_ray_scores_plain(*args, score_chunk)
 
 
 def suggest_cull_budget(cfg, vb, cameras, height, width, feats=None, margin=1.3,

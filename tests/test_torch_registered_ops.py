@@ -1,5 +1,5 @@
 """The kernels as registered ops (`torch.ops.kpnerf.*`): K2, K3, K4, K5,
-K6, dense_act and rel_z_decay each have a CUDA implementation (the
+K6, dense_act, rel_z_decay and empty_ray_scores each have a CUDA implementation (the
 kernel), a CPU one (its plain version) and a fake one (shapes and dtypes),
 which is what lets `torch.export` carry them (keypointnerf_torch/export.py).
 K1 is training only and stays a ctypes call.
@@ -172,6 +172,58 @@ def test_rel_z_decay_exports():
     enc = [n for n in ep.graph.nodes if n.target == torch.ops.kpnerf.rel_z_decay.default][0]
     assert enc.meta["val"].shape == (V, N, 168) and enc.meta["val"].dtype == torch.bfloat16
     assert torch.equal(ep.module()(*args), want)
+
+
+def _cull_args(mode):
+    """A cull's per-frame inputs on the synthetic 32² scene: its cell
+    table, projection matrices and 50 rays (near / far from the camera's
+    slab)."""
+    from keypointnerf_torch.data import SyntheticConfig, make_sample
+    from keypointnerf_torch.geometry import camera_rays, compose_krt
+    from keypointnerf_torch.models import ViewBatch
+    from keypointnerf_torch.render.empty_cull import conservative_mask_cells
+
+    vb = ViewBatch.from_numpy(make_sample(SyntheticConfig(image_size=32), seed=0), "cpu")
+    rs = np.random.default_rng(7)
+    pix = torch.from_numpy(rs.uniform(0, 32, (50, 2)).astype(np.float32))
+    origin, dirs, near, far = camera_rays(pix, vb.tar_K, vb.tar_R, vb.tar_t, 0.5, 8.0)
+    cmax = conservative_mask_cells(vb.src_masks, 8)
+    krt = compose_krt(vb.src_K, vb.src_R, vb.src_t)
+    return (cmax, krt, origin, dirs, near, far, mode, 9, 7, 3, 32, 32, 32, 32, 8)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_empty_ray_scores_op(mode):
+    """empty_ray_scores: the op's schema and fake implementation against
+    the CPU one (the composition) in each reduction, and the wrapper's
+    values through the op."""
+    args = _cull_args(mode)
+    torch.library.opcheck(torch.ops.kpnerf.empty_ray_scores.default, args, test_utils=UTILS)
+    got = ops.fused_empty_ray_scores(*args)
+    assert got.shape == (50,) and got.dtype == torch.float32
+    assert torch.equal(got, ops.empty_ray_scores_plain(*args))
+
+
+def test_empty_ray_scores_exports():
+    """A cull exported with the op holds it once (the fake implementation
+    gives the scores' shape to the threshold after it), and the exported
+    program gives the eager bits."""
+    args = _cull_args(2)
+
+    class Cull(torch.nn.Module):
+        def forward(self, cmax, krt, origin, dirs, near, far):
+            scores = ops.fused_empty_ray_scores(cmax, krt, origin, dirs, near, far, *args[6:])
+            return scores, (scores > 0.09).sum()
+
+    with torch.no_grad():
+        ep = torch.export.export(Cull(), args[:6])
+        want = Cull()(*args[:6])
+    ops_called = [n.target for n in ep.graph.nodes if n.op == "call_function"]
+    assert ops_called.count(torch.ops.kpnerf.empty_ray_scores.default) == 1
+    node = [n for n in ep.graph.nodes if n.target == torch.ops.kpnerf.empty_ray_scores.default][0]
+    assert node.meta["val"].shape == (50,) and node.meta["val"].dtype == torch.float32
+    got = ep.module()(*args[:6])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_dmap_is_not_registered():
